@@ -1,0 +1,3 @@
+from renormalizer_tpu_torch.mps.mps import Mps
+from renormalizer_tpu_torch.mps.mpo import Mpo
+from renormalizer_tpu_torch.mps.gs import optimize_mps

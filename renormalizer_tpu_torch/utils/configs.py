@@ -1,0 +1,192 @@
+"""Configuration objects for compression and ground-state optimization.
+
+Numpy copy of ``renormalizer_tpu/utils/configs.py`` holding what the DMRG
+slice needs: ``CompressCriteria``, ``OFS``, ``CompressConfig``,
+``OptimizeConfig``.  The time-evolution configs come with the evolution
+slice.
+"""
+
+import logging
+from enum import Enum
+from typing import Union
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+class CompressCriteria(Enum):
+    """Criteria for truncating singular-value spectra."""
+
+    #: discard states with normalized singular value below ``threshold``
+    threshold = "threshold"
+    #: keep at most a fixed number of states
+    fixed = "fixed"
+    #: the stricter of ``threshold`` and ``fixed``
+    both = "both"
+
+
+class OFS(Enum):
+    """On-the-fly swapping criteria (reference ``configs.py:27-38``)."""
+
+    ofs_s = "OFS-S"        # entanglement entropy
+    ofs_ds = "OFS-D/S"     # hybrid
+    ofs_d = "OFS-D"        # discarded weight
+    ofs_debug = "OFS-Debug"  # dry run without swapping
+
+
+class CompressConfig:
+    """MPS/MPO compression configuration.
+
+    See reference ``renormalizer/utils/configs.py:41-264`` for the field
+    contracts this class reproduces.
+    """
+
+    def __init__(
+        self,
+        criteria: Union[CompressCriteria, str] = CompressCriteria.threshold,
+        threshold: float = 1e-3,
+        max_bonddim: int = 32,
+        vmethod: str = "2site",
+        vprocedure=None,
+        vrtol: float = 1e-5,
+        vguess_m=(5, 5),
+        dump_matrix_size=np.inf,
+        dump_matrix_dir="./",
+        ofs: OFS = None,
+        ofs_swap_jw: bool = False,
+    ):
+        if isinstance(criteria, str):
+            criteria = CompressCriteria[criteria]
+        self.criteria: CompressCriteria = criteria
+        self._threshold = None
+        self.threshold = threshold
+        self.bond_dim_max_value = max_bonddim
+        # per-bond maximum dims; length is nsite+1 when set
+        self.max_dims: np.ndarray = None
+
+        self.vmethod = vmethod
+        if vprocedure is None:
+            if vmethod == "1site":
+                vprocedure = [
+                    [max_bonddim, 1.0], [max_bonddim, 0.7], [max_bonddim, 0.5],
+                    [max_bonddim, 0.3], [max_bonddim, 0.1],
+                ] + [[max_bonddim, 0]] * 10
+            else:
+                vprocedure = [
+                    [max_bonddim, 0.5], [max_bonddim, 0.3], [max_bonddim, 0.1],
+                ] + [[max_bonddim, 0]] * 10
+        self.vprocedure = vprocedure
+        self.vrtol = vrtol
+        self.vguess_m = vguess_m
+
+        # out-of-core thresholds kept for API parity; the port keeps every
+        # tensor on its device and has no host offload.
+        self.dump_matrix_size = dump_matrix_size
+        self.dump_matrix_dir = dump_matrix_dir
+
+        self.ofs: OFS = ofs
+        self.ofs_swap_jw: bool = ofs_swap_jw
+
+    @property
+    def threshold(self):
+        return self._threshold
+
+    @threshold.setter
+    def threshold(self, v):
+        if v <= 0:
+            raise ValueError("non-positive threshold")
+        if v == 1:
+            raise ValueError("1 is an ambiguous threshold")
+        if 1 < v:
+            raise ValueError("Can't set threshold to be larger than 1")
+        self._threshold = v
+
+    @property
+    def bonddim_should_set(self):
+        return self.criteria is not CompressCriteria.threshold and self.max_dims is None
+
+    def set_bonddim(self, length: int):
+        if self.max_dims is None:
+            self.max_dims = np.full(length, self.bond_dim_max_value, dtype=int)
+
+    def _threshold_m_trunc(self, sigma: np.ndarray, total_norm=None) -> int:
+        normed = sigma / (np.linalg.norm(sigma) if total_norm is None
+                          else total_norm)
+        return int(np.sum(normed > self.threshold))
+
+    def _fixed_m_trunc(self, sigma: np.ndarray, idx: int, left: bool) -> int:
+        assert self.max_dims is not None
+        bond_idx = idx + 1 if left else idx
+        return min(int(self.max_dims[bond_idx]), len(sigma))
+
+    def compute_m_trunc(self, sigma: np.ndarray, idx: int, left: bool,
+                        total_norm=None) -> int:
+        """Number of states to keep.  ``total_norm`` supplies the exact
+        Frobenius norm of the local coefficient when ``sigma`` is only the
+        top of the spectrum (a sketched device factorization) — the
+        threshold criterion then normalizes against the true norm instead
+        of the partial one."""
+        if self.criteria is CompressCriteria.threshold:
+            return self._threshold_m_trunc(sigma, total_norm)
+        if self.criteria is CompressCriteria.fixed:
+            return self._fixed_m_trunc(sigma, idx, left)
+        if self.criteria is CompressCriteria.both:
+            return min(
+                self._threshold_m_trunc(sigma, total_norm),
+                self._fixed_m_trunc(sigma, idx, left),
+            )
+        raise AssertionError
+
+    def update(self, other: "CompressConfig"):
+        """Keep the stricter of two configs (reference ``configs.py:221-233``)."""
+        if self.criteria != other.criteria:
+            raise ValueError("Can't update configs with different criteria")
+        self.threshold = min(self.threshold, other.threshold)
+        if self.max_dims is None:
+            self.max_dims = other.max_dims
+        elif other.max_dims is not None:
+            self.max_dims = np.maximum(self.max_dims, other.max_dims)
+
+    def relax(self):
+        """Loosen both criteria (reference ``configs.py:235-243``)."""
+        self.threshold = min(self.threshold * 3, 0.9)
+        if self.max_dims is not None:
+            self.max_dims = np.maximum(
+                np.int64(self.max_dims * 0.8), np.full_like(self.max_dims, 2)
+            )
+
+    def copy(self) -> "CompressConfig":
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__ = self.__dict__.copy()
+        if self.max_dims is not None:
+            new.max_dims = self.max_dims.copy()
+        return new
+
+    def __str__(self):
+        return f"\ncriteria: {self.criteria}\nthreshold: {self.threshold}"
+
+
+class OptimizeConfig:
+    """DMRG ground-state optimization configuration
+    (reference ``configs.py:267-300``)."""
+
+    def __init__(self, procedure=None):
+        if procedure is None:
+            self.procedure = [[10, 0.4], [20, 0.2], [30, 0.1], [40, 0], [40, 0]]
+        else:
+            self.procedure = procedure
+        self.method = "2site"
+        # "davidson" (device lax.while_loop Davidson) or "direct"
+        self.algo = "davidson"
+        self.nroots = 1
+        self.e_rtol = 1e-6
+        self.e_atol = 1e-8
+        # -1.0 targets the largest eigenvalue
+        self.inverse = 1.0
+
+    def copy(self):
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__ = self.__dict__.copy()
+        new.procedure = self.procedure.copy()
+        return new
