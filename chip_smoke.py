@@ -8,17 +8,20 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero):
   1. environment: the card's name and power limit; the port's device is CUDA;
   2. build: compiles csrc/*.cu with nvcc for sm_90a (first use);
-  3. kernel versus plain: the Jacobi eigensolver kernel and its plain torch
-     version on the same seeded matrices, both held against torch.linalg.eigh
-     (tolerances relative to ||A||_F: eigenvalues 1e-5 f32 / 1e-11 f64,
-     |V^T V - I| 1e-4 / 1e-12, |AV - VL| 1e-4 / 1e-11, up to n = 288; f32
-     rounding grows with the rotations per column, so past n = 288 the f32
-     tolerances grow as n / 288); times at the main path's shape
-     (2, 288, 288) f32;
+  3. kernel versus plain: the block-Jacobi eigensolver kernel and its plain
+     torch version on the same seeded matrices, both held against
+     torch.linalg.eigh (tolerances relative to ||A||_F: eigenvalues 1e-5 f32
+     / 1e-11 f64, |V^T V - I| 1e-4 / 1e-12, |AV - VL| 1e-4 / 1e-11, up to
+     n = 288; past n = 288 the f32 tolerances grow as n / 288); then, at the
+     main path's shapes (2, 288, 288) and (1, 544, 544) f32, the kernel, the
+     plain version and torch.linalg.eigh timed in turns, the sweeps each
+     timed solve took, and the kernel's bound;
   4. main path: 2-site DMRG of the 6-molecule Holstein chain (18 sites) at
      M=256 in fp32, through Mps.random / Mpo / optimize_mps; the energy must be
      within 1e-6 of 0.11503887 and the truncation's Gram eigh must have gone
-     through the kernel.
+     through the kernel.  Each Gram eigh's residual and sweep count are kept
+     on the device and read once at the end: the script prints how many
+     launches ran to the sweep cap and the (batch, n) histogram.
 The line before the last holds the kernel record as JSON; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
@@ -29,6 +32,7 @@ runs the main path under torch.profiler and adds its device time per
 kernel and the card's busy share of that run's wall time.
 """
 
+import collections
 import contextlib
 import json
 import subprocess
@@ -41,6 +45,10 @@ M = 256
 PROCEDURE = [[M, 0.4], [M, 0.2]] + [[M, 0]] * 6
 JACOBI_SOURCE = "renormalizer_tpu_torch/csrc/jacobi.cu"
 JACOBI_REPLACES = "renormalizer_tpu/ops/jacobi.py:238"
+# published H100 SXM peaks at 700 W (NVIDIA data sheet): FP32 outside the
+# tensor cores, HBM3 bandwidth
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg):
@@ -53,23 +61,40 @@ def check(cond, msg):
         fail(msg)
 
 
-def cuda_time_ms(fn, reps):
-    """Median milliseconds of ``fn()`` by CUDA events, after one warm-up."""
+def cuda_times_in_turns(fns, reps):
+    """Median milliseconds of each ``fns[name]()`` by CUDA events, after one
+    warm-up each; the functions take turns, ``reps[name]`` times each."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in fns.values():
         fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for i in range(max(reps.values())):
+        for name, fn in fns.items():
+            if i >= reps[name]:
+                continue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
+def jacobi_bound_ms(bsz, n, itemsize):
+    """Least time of a (bsz, n, n) symmetric eigendecomposition with
+    eigenvectors on the card, and what sets it: the textbook ~9 n^3
+    operations per matrix (symmetric QR with eigenvectors, Golub & Van Loan
+    §8.3; about one sweep of scalar Jacobi, 9 n^2 (n - 1)) over the FP32
+    peak, against each input read once and each output (V, w) written once
+    over the HBM rate.  It does not depend on the sweeps a solver takes."""
+    flops = 9.0 * n ** 3 * bsz
+    nbytes = itemsize * bsz * (2 * n * n + n)
+    ms_ops, ms_bytes = 1e3 * flops / FP32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ms_ops, "operations") if ms_ops >= ms_bytes else (ms_bytes, "bytes")
 
 
 def phase_environment():
@@ -141,7 +166,8 @@ def phase_kernels():
     import numpy as np
     import torch
 
-    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_reference
+    from renormalizer_tpu_torch.ops.jacobi import (
+        MAX_EXTRA_SWEEPS, default_sweeps, jacobi_eigh, jacobi_eigh_reference)
 
     tols = {torch.float32: dict(eig=1e-5, orth=1e-4, resid=1e-4),
             torch.float64: dict(eig=1e-11, orth=1e-12, resid=1e-11)}
@@ -166,9 +192,13 @@ def phase_kernels():
         tol = {k: t * grow for k, t in tols[dt].items()}
         errs, errs_p = _eigh_errors(a, w, v), _eigh_errors(a, w_p, v_p)
         err = float((w - w_p).abs().max())
+        unscaled = all(e < t for found in (errs, errs_p)
+                       for e, t in zip(found, tols[dt].values()))
         print(f"[kernel] {tag}: kernel eig/orth/resid "
               f"{' '.join(f'{e:.2e}' for e in errs)}; plain "
-              f"{' '.join(f'{e:.2e}' for e in errs_p)}; |w - w_plain| {err:.2e}",
+              f"{' '.join(f'{e:.2e}' for e in errs_p)}; |w - w_plain| {err:.2e}"
+              + ("" if grow == 1.0 else
+                 f"; within the unscaled n <= 288 tolerances: {unscaled}"),
               flush=True)
         _check_eigh(tag + " kernel", errs, tol)
         _check_eigh(tag + " plain", errs_p, tol)
@@ -184,30 +214,42 @@ def phase_kernels():
     q, _ = np.linalg.qr(rng.standard_normal((96, 96)))
     a = (q * lam_true) @ q.T
     a = torch.tensor((a + a.T) / 2, dtype=torch.float64, device="cuda")
-    w, v, resid = jacobi_eigh(a, sweeps=2, return_resid=True)
+    w, v, resid, nsweeps = jacobi_eigh(a, sweeps=2, return_resid=True,
+                                       return_sweeps=True)
     lam = torch.tensor(np.sort(lam_true), dtype=torch.float64, device="cuda")
     rel = float(((w - lam).abs() / lam).max())
     absd = float((w - lam).abs().max())
-    print(f"[kernel] clustered f64 sweeps=2: resid {float(resid):.2e} "
+    print(f"[kernel] clustered f64 sweeps=2: {int(nsweeps)} sweeps (cap "
+          f"{2 + MAX_EXTRA_SWEEPS}), resid {float(resid):.2e} "
           f"eig rel {rel:.2e} abs {absd:.2e}", flush=True)
     check(float(resid) < 1e-7, f"clustered: resid {float(resid):.2e}")
     check(bool(torch.all((w - lam).abs() <= 1e-8 * lam + 1e-10)),
           "clustered: eigenvalues off")
 
-    a = _symmetric(rng, (2, 288, 288), torch.float32)
-    ms_kernel = cuda_time_ms(lambda: jacobi_eigh(a), 10)
-    ms_plain = cuda_time_ms(lambda: jacobi_eigh_reference(a), 3)
-    ms_eigh = cuda_time_ms(lambda: torch.linalg.eigh(a), 10)
-    # the f32 stopping test (total - diagonal <= eps^2 ||A||^2) passes or
-    # not by rounding, so a solve takes the base sweeps or runs to the cap
-    # (2.6x the time); a residual above eps marks the latter
-    resid = jacobi_eigh(a, return_resid=True)[2]
-    capped = int((resid > torch.finfo(a.dtype).eps).sum())
-    print(f"[kernel] (2, 288, 288) f32 median ms: kernel {ms_kernel:.3f} "
-          f"plain {ms_plain:.3f} torch.linalg.eigh {ms_eigh:.3f}; "
-          f"{capped} of 2 kernel solves ran to the sweep cap", flush=True)
-    return dict(max_abs_err=main_err, ms=ms_kernel, plain_ms=ms_plain,
-                eigh_ms=ms_eigh)
+    timed = {}
+    cap = default_sweeps(torch.float32) + MAX_EXTRA_SWEEPS
+    for shape in ((2, 288, 288), (1, 544, 544)):
+        # the first timed input is drawn after the clustered case, as in
+        # earlier runs; the second from its own seed
+        a = _symmetric(rng if shape[-1] == 288 else np.random.default_rng(5440),
+                       shape, torch.float32)
+        ms = cuda_times_in_turns({
+            "kernel": lambda: jacobi_eigh(a),
+            "torch.linalg.eigh": lambda: torch.linalg.eigh(a),
+            "plain": lambda: jacobi_eigh_reference(a)},
+            {"kernel": 10, "torch.linalg.eigh": 10, "plain": 3})
+        sweeps = jacobi_eigh(a, return_sweeps=True)[2].tolist()
+        sweeps_p = jacobi_eigh_reference(a, return_sweeps=True)[2].tolist()
+        capped = sum(s >= cap for s in sweeps + sweeps_p)
+        bound, bound_by = jacobi_bound_ms(shape[0], shape[-1], 4)
+        print(f"[kernel] {shape} f32 median ms: kernel {ms['kernel']:.3f} "
+              f"plain {ms['plain']:.3f} torch.linalg.eigh "
+              f"{ms['torch.linalg.eigh']:.3f}; sweeps kernel {sweeps} plain "
+              f"{sweeps_p} (cap {cap}), {capped} timed solves at the cap; "
+              f"bound {bound:.6f} ms ({bound_by})", flush=True)
+        check(capped == 0, f"{shape}: {capped} timed solves ran to the sweep cap")
+        timed[shape] = dict(ms, bound_ms=bound, bound_by=bound_by)
+    return dict(max_abs_err=main_err, timed=timed)
 
 
 def bench_model():
@@ -227,7 +269,8 @@ def phase_main_path(card):
     from renormalizer_tpu_torch import Mpo, Mps, optimize_mps
     from renormalizer_tpu_torch.backend import backend
     from renormalizer_tpu_torch.mps import gs, trunc_device
-    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.ops.jacobi import (
+        MAX_EXTRA_SWEEPS, default_sweeps, jacobi_eigh)
 
     model = bench_model()
     check(model.nsite == 18, f"bench model has {model.nsite} sites")
@@ -247,7 +290,19 @@ def phase_main_path(card):
         sweep_times.append(time.perf_counter() - t0)
         return out
 
+    # every Gram eigh of the truncation: its shape, and its residual and
+    # sweep count left on the device (no sync per launch)
+    grams = []
+
+    def recorded_eigh(g, *args, **kwargs):
+        w, v, resid, nsweeps = jacobi_eigh(g, *args, return_resid=True,
+                                           return_sweeps=True, **kwargs)
+        grams.append((g.shape[0] if g.ndim == 3 else 1, g.shape[-1],
+                      resid.reshape(-1), nsweeps.reshape(-1)))
+        return w, v
+
     gs.single_sweep = timed_sweep
+    trunc_device.jacobi_eigh = recorded_eigh
     try:
         jacobi_eigh.launches = 0
         trunc_device.LINALG_EIGH_GRAMS = 0
@@ -259,6 +314,7 @@ def phase_main_path(card):
         elsewhere = trunc_device.LINALG_EIGH_GRAMS
     finally:
         gs.single_sweep = single_sweep
+        trunc_device.jacobi_eigh = jacobi_eigh
     e_min = float(min(energies))
     print(f"[main] energies per sweep: {[float(e) for e in energies]}", flush=True)
     print(f"[main] sweep seconds ({card}): "
@@ -267,6 +323,19 @@ def phase_main_path(card):
           f"diff {e_min - E_REF:+.3e}); bond dims {opt.bond_dims}", flush=True)
     print(f"[main] jacobi launches {launches}; Gram eigh elsewhere {elsewhere}",
           flush=True)
+    cap = default_sweeps(torch.float32) + MAX_EXTRA_SWEEPS
+    sweeps = [t[3].tolist() for t in grams]
+    resid_max = float(torch.cat([t[2] for t in grams]).max()) if grams else 0.0
+    at_cap = sum(max(s) >= cap for s in sweeps)
+    hist = collections.Counter((b, n) for b, n, _, _ in grams)
+    sweep_hist = collections.Counter(x for s in sweeps for x in s)
+    print(f"[main] Gram eigh launches at the sweep cap ({cap}): {at_cap} of "
+          f"{len(grams)}; sweeps per solve {dict(sorted(sweep_hist.items()))}; "
+          f"largest resid {resid_max:.2e}", flush=True)
+    print(f"[main] (batch, n) of the launches: {dict(sorted(hist.items()))}",
+          flush=True)
+    check(len(grams) == launches, f"{len(grams)} recorded Grams, {launches} launches")
+    check(at_cap == 0, f"{at_cap} main-path launches ran to the sweep cap")
     check(abs(e_min - E_REF) < E_TOL,
           f"energy {e_min} not within {E_TOL} of {E_REF}")
     check(launches > 0, "the main path never launched the Jacobi kernel")
@@ -279,7 +348,7 @@ def phase_main_path(card):
     return launches, total
 
 
-def print_device_breakdown(prof, wall_s, card, top=8):
+def print_device_breakdown(prof, wall_s, card, top=10):
     """Device time per kernel of a torch.profiler run, and the card's busy
     share of ``wall_s``: the union of the device intervals over the wall."""
     from torch.autograd import DeviceType
@@ -302,6 +371,11 @@ def print_device_breakdown(prof, wall_s, card, top=8):
     print(f"[profile] ({card}) device time {total / 1e6:.3f} s in "
           f"{len(spans)} device events; busy {busy / 1e6:.3f} s of "
           f"{wall_s:.3f} s wall ({100 * busy / 1e6 / wall_s:.1f} %)", flush=True)
+    jacobi = [v for name, v in per_name.items() if "jacobi_kernel" in name]
+    jac_us, jac_calls = sum(us for us, _ in jacobi), sum(c for _, c in jacobi)
+    print(f"[profile] ({card}) Jacobi kernel: {jac_us / 1e6:.3f} s in "
+          f"{jac_calls} launches, {100 * jac_us / total:.1f} % of device time",
+          flush=True)
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])
     for kname, (us, calls) in ranked[:top]:
         print(f"[profile] {us / 1e6:9.3f} s {100 * us / total:5.1f} % "
@@ -325,12 +399,15 @@ def main():
         launches, wall_s = phase_main_path(card)
     if profile:
         print_device_breakdown(prof, wall_s, card)
+    steady = record["timed"][(2, 288, 288)]
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,
         "replaces": JACOBI_REPLACES, "launches": launches,
-        "max_abs_err": record["max_abs_err"], "ms": record["ms"],
-        "plain_ms": record["plain_ms"]}]}), flush=True)
+        "max_abs_err": record["max_abs_err"], "ms": steady["kernel"],
+        "plain_ms": steady["plain"], "bound_ms": steady["bound_ms"],
+        "bound_by": steady["bound_by"],
+        "library_ms": steady["torch.linalg.eigh"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -80,7 +80,9 @@ def load() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for name in ("reno_jacobi_eigh_f32", "reno_jacobi_eigh_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            # a, v, w, resid, nsweeps, work; batch, n, sweeps, max_sweeps;
+            # stream
+            fn.argtypes = [vp] * 6 + [ci] * 4 + [vp]
             fn.restype = ci
         _lib = lib
     return _lib

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from renormalizer_tpu_torch.ops import jacobi
 from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_reference
 
 torch.set_num_threads(2)
@@ -27,18 +28,28 @@ def _symmetric_stack(seed, batch, n):
     return (a + np.swapaxes(a, -1, -2)) / 2
 
 
+# the main path's steady-sweep batch, its widest growth-sweep Gram, and f64;
+# tolerances relative to ||A||_F: eigenvalues within 1e-5 (f32) / 1e-11
+# (f64) of the exact ones for either version, so within twice that of each
+# other; |V^T V - I| as chip_smoke.py holds it
 @pytest.mark.cuda
-def test_jacobi_kernel_matches_plain(cuda):
-    """The CUDA kernel against its plain version at the main path's shape,
-    (2, 288, 288) f32, with one counted launch."""
-    a = torch.tensor(_symmetric_stack(2019, 2, 288), dtype=torch.float32,
-                     device=cuda)
+@pytest.mark.parametrize("batch, n, dtype, eig, orth", [
+    (2, 288, torch.float32, 1e-5, 1e-4),
+    (1, 544, torch.float32, 1e-5, 1e-4),
+    (2, 96, torch.float64, 1e-11, 1e-12),
+])
+def test_jacobi_kernel_matches_plain(cuda, batch, n, dtype, eig, orth):
+    """The CUDA kernel against its plain version, one counted launch, both
+    stopping before the sweep cap."""
+    a = torch.tensor(_symmetric_stack(2019, batch, n), dtype=dtype, device=cuda)
     before = jacobi_eigh.launches
-    w, v = jacobi_eigh(a)
-    w_p, _ = jacobi_eigh_reference(a)
+    w, v, _, nsweeps = jacobi_eigh(a, return_resid=True, return_sweeps=True)
+    w_p, _, _, nsweeps_p = jacobi_eigh_reference(a, return_resid=True,
+                                                 return_sweeps=True)
     assert jacobi_eigh.launches == before + 1
-    # both sit within 1e-5 ||A||_F of the exact eigenvalues
+    cap = jacobi.default_sweeps(dtype) + jacobi.MAX_EXTRA_SWEEPS
+    assert int(nsweeps.max()) < cap and int(nsweeps_p.max()) < cap
     norm = float(torch.linalg.matrix_norm(a).min())
-    assert float((w - w_p).abs().max()) < 2e-5 * norm
-    eye = torch.eye(288, device=cuda)
-    assert float((v.mT @ v - eye).abs().max()) < 1e-4
+    assert float((w - w_p).abs().max()) < 2 * eig * norm
+    eye = torch.eye(n, dtype=dtype, device=cuda)
+    assert float((v.mT @ v - eye).abs().max()) < orth

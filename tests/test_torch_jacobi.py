@@ -1,8 +1,9 @@
 """The port's Jacobi eigensolver against the JAX package's Pallas kernel.
 
-On the CPU the port's ``jacobi_eigh`` runs its plain torch version and the
-JAX kernel runs in Pallas interpret mode (as ``tests/test_trunc_device.py``
-runs it); both are the same parallel-ordered Jacobi, fp64."""
+On the CPU the port's ``jacobi_eigh`` runs its plain torch version (block
+Jacobi) and the JAX kernel runs in Pallas interpret mode (as
+``tests/test_trunc_device.py`` runs it; scalar parallel-ordered Jacobi);
+both converge to the same eigenpairs, fp64."""
 
 import numpy as np
 import pytest
@@ -20,7 +21,8 @@ def _symmetric(rng, n):
     return (a + a.T) / 2
 
 
-@pytest.mark.parametrize("n", [24, 96])
+# 72 pads to 96: three block pairs, the last block all padding
+@pytest.mark.parametrize("n", [24, 72, 96])
 def test_matches_jax_kernel(n):
     a = _symmetric(np.random.default_rng(3), n)
     w, v = jacobi_eigh(torch.tensor(a))
@@ -75,13 +77,36 @@ def test_padding_is_exact_and_rejects_bad_input():
         jacobi_eigh(torch.zeros((4, 5), dtype=torch.float64))
 
 
-@pytest.mark.parametrize("dtype, n_max", [(torch.float32, 4080),
-                                          (torch.float64, 3040)])
-def test_size_limit_is_the_kernels_shared_memory(dtype, n_max):
-    """n is accepted up to the largest padded size whose shared-memory need
-    fits the default 48 KB of a CTA, and rejected one padding step beyond
+def test_f32_stop_test_ends_before_the_cap():
+    """An f32 spectrum on which the earlier rule (total - diagonal <= eps^2
+    ||A||^2, each sum in f32) ran to the sweep cap: at the converged
+    diag(lam) the two sums do not round alike.  The block solver's
+    entry-wise test stops before the cap with resid <= n eps."""
+    n = 96
+    rng = np.random.default_rng(17)
+    lam = rng.standard_normal(n).astype(np.float32)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = (q * lam.astype(np.float64)) @ q.T
+    a = torch.tensor((a + a.T) / 2, dtype=torch.float32)
+    eps = np.finfo(np.float32).eps
+    sweeps = jacobi.default_sweeps(torch.float32)
+    w, v, resid, nsweeps = jacobi._solve_reference(
+        jacobi._pad(a[None], jacobi.padded_size(n)), sweeps)
+    assert int(nsweeps[0]) < sweeps + jacobi.MAX_EXTRA_SWEEPS
+    assert float(resid[0]) <= n * eps
+    w, v = jacobi_eigh(a)
+    np.testing.assert_allclose(w.numpy(), np.sort(lam), rtol=0,
+                               atol=1e-5 * np.linalg.norm(lam))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_size_limit_is_the_kernels_block_table(dtype):
+    """The kernel takes a padded n up to its 512-block table (8192) and is
+    refused one padding step beyond; the plain version has no such limit
     (stride-0 views: no matrix of that size is allocated)."""
-    assert jacobi.smem_bytes(n_max, dtype.itemsize) <= jacobi.SMEM_LIMIT
-    jacobi._check(torch.zeros((), dtype=dtype).expand(n_max, n_max))
-    with pytest.raises(ValueError, match="shared memory"):
-        jacobi_eigh(torch.zeros((), dtype=dtype).expand(n_max + 1, n_max + 1))
+    n_max = jacobi.MAX_N
+    assert n_max // jacobi.BLOCK == 512 and jacobi.padded_size(n_max) == n_max
+    jacobi.check_kernel_size(n_max)
+    with pytest.raises(ValueError, match="block table"):
+        jacobi.check_kernel_size(n_max + 1)
+    jacobi._check(torch.zeros((), dtype=dtype).expand(n_max + 1, n_max + 1))
