@@ -4,11 +4,13 @@ from renormalizer_tpu_torch.model.basis import (
     BasisSHO,
     BasisMultiElectronVac,
     BasisSimpleElectron,
+    BasisHalfSpin,
 )
 from renormalizer_tpu_torch.model.phonon import Phonon
 from renormalizer_tpu_torch.model.mol import Mol
 from renormalizer_tpu_torch.model.model import (
     Model,
     HolsteinModel,
+    SpinBosonModel,
     construct_j_matrix,
 )

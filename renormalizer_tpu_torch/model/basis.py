@@ -404,3 +404,44 @@ _HALF_SPIN_ALIASES = {
     "Z": "sigma_z", "z": "sigma_z",
     "-": "sigma_-", "+": "sigma_+",
 }
+
+
+class BasisHalfSpin(BasisSet):
+    r"""Spin-1/2 basis (reference ``model/basis.py:932-996``).
+
+    Examples
+    --------
+    >>> b = BasisHalfSpin(0)
+    >>> b
+    BasisHalfSpin(dof: 0, nbas: 2)
+    >>> b.op_mat("X")
+    array([[0., 1.],
+           [1., 0.]])
+    >>> -1 * b.op_mat("iY") @ b.op_mat("iY")  # convenient for real Hamiltonian
+    array([[1., 0.],
+           [0., 1.]])
+    """
+
+    is_spin = True
+
+    def __init__(self, dof, sigmaqn: List = None):
+        if sigmaqn is None:
+            sigmaqn = [0, 0]
+        super().__init__(dof, 2, sigmaqn)
+
+    def op_mat(self, op: Union[Op, str]):
+        if not isinstance(op, Op):
+            op = Op(op, None)
+        mat = np.eye(2)
+        for sym in op.split_symbol:
+            canonical = _HALF_SPIN_ALIASES.get(sym, sym)
+            if canonical not in _HALF_SPIN_MATS:
+                raise ValueError(f"op_symbol:{sym} is not supported")
+            factor_mat = _HALF_SPIN_MATS[canonical]
+            mat = mat @ factor_mat
+        if np.allclose(mat.imag, 0):
+            mat = mat.real
+        return mat * op.factor
+
+    def copy(self, new_dof):
+        return self.__class__(new_dof, self.sigmaqn)

@@ -1,7 +1,7 @@
 r"""Model classes binding basis sets and sum-of-product Hamiltonians.
 
-Numpy copy of ``renormalizer_tpu/model/model.py`` holding ``Model`` and
-``HolsteinModel``.
+Numpy copy of ``renormalizer_tpu/model/model.py`` holding ``Model``,
+``HolsteinModel`` and ``SpinBosonModel``.
 """
 
 import logging
@@ -12,12 +12,14 @@ import numpy as np
 
 from renormalizer_tpu_torch.model.basis import (
     BasisSet,
+    BasisHalfSpin,
     BasisSHO,
     BasisSimpleElectron,
     BasisMultiElectronVac,
 )
 from renormalizer_tpu_torch.model.mol import Mol
 from renormalizer_tpu_torch.model.op import Op, OpSum
+from renormalizer_tpu_torch.model.phonon import Phonon
 from renormalizer_tpu_torch.utils import Quantity, cached_property
 
 logger = logging.getLogger(__name__)
@@ -284,3 +286,38 @@ class HolsteinModel(Model):
 
     def __len__(self):
         return len(self.mol_list)
+
+
+class SpinBosonModel(Model):
+    r"""Spin-Boson model (reference ``model/model.py:410-439``):
+
+    .. math::
+        \hat H = \epsilon\sigma_z + \Delta\sigma_x
+            + \frac12\sum_i (p_i^2 + \omega_i^2 q_i^2)
+            + \sigma_z \sum_i c_i q_i
+    """
+
+    def __init__(
+        self,
+        epsilon: Quantity,
+        delta: Quantity,
+        ph_list: List[Phonon],
+        dipole: float = None,
+    ):
+        self.epsilon = epsilon.as_au()
+        self.delta = delta.as_au()
+        self.ph_list = ph_list
+
+        basis = [BasisHalfSpin("spin")]
+        for iph, ph in enumerate(ph_list):
+            basis.append(BasisSHO(iph, ph.omega[0], ph.n_phys_dim))
+
+        ham = [Op("sigma_z", "spin", self.epsilon), Op("sigma_x", "spin", self.delta)]
+        for iph, ph in enumerate(ph_list):
+            assert ph.is_simple
+            ham.append(Op("p^2", iph, 0.5))
+            ham.append(Op("x^2", iph, 0.5 * ph.omega[0] ** 2))
+            ham.append(
+                Op("sigma_z", "spin") * Op("x", iph) * (-ph.omega[1] ** 2 * ph.dis[1])
+            )
+        super().__init__(basis, ham, dipole={"spin": dipole if dipole is not None else 0})

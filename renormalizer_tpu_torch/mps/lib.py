@@ -9,6 +9,8 @@ reference's exact selection everywhere.
 """
 
 import logging
+from collections import deque
+from functools import reduce
 from typing import List
 
 import numpy as np
@@ -34,8 +36,11 @@ class Environ:
 
     def __init__(self, mps, mpo, domain=None, mps_conj=None):
         self._store = {}
-        self.sentinel = torch.ones((1, 1, 1), dtype=backend.real_dtype,
-                                   device=backend.device)
+        # the boundary carries the dtype of the contraction, so no
+        # environment is promoted again when it meets a complex state
+        self.sentinel = torch.ones(
+            (1, 1, 1), dtype=torch.promote_types(mps[0].dtype, mpo[0].dtype),
+            device=backend.device)
         self._build(mps, mpo, domain, mps_conj)
 
     def _build(self, mps, mpo, domain, mps_conj):
@@ -58,18 +63,19 @@ class Environ:
                                        ms_conj=mps_conj[idx])
             self.write(domain, idx, tensor)
 
-    def GetLR(self, domain, siteidx, mps, mpo, method):
+    def GetLR(self, domain, siteidx, mps, mpo, itensor=None, *, method):
         """Fetch/update the environment at ``siteidx``: ``method="Enviro"``
-        reads the cache, ``"System"`` extends the neighbor environment by
-        one site and caches it."""
+        reads the cache, ``"System"`` extends ``itensor`` (default: the
+        cached neighbor environment) by one site and caches it."""
         assert domain in ("L", "R") and method in ("Enviro", "System")
         if siteidx not in range(len(mps)):
             return self.sentinel
         if method == "Enviro":
             return self.read(domain, siteidx)
-        offset = -1 if domain == "L" else 1
-        itensor = contract_one_site(self.read(domain, siteidx + offset),
-                                    mps[siteidx], mpo[siteidx], domain)
+        if itensor is None:
+            offset = -1 if domain == "L" else 1
+            itensor = self.read(domain, siteidx + offset)
+        itensor = contract_one_site(itensor, mps[siteidx], mpo[siteidx], domain)
         self.write(domain, siteidx, itensor)
         return itensor
 
@@ -138,6 +144,24 @@ def select_basis(vset, sset, qnlist, compset, Mmax, percent=0):
     else:
         compms = None
     return ms, mpsdim, mpsqn, compms
+
+
+def compressed_sum(mps_list, batchsize=5, temp_m_trunc=None):
+    """Sum many MPS with intermediate compression in batches
+    (reference ``mps/lib.py:417-439``)."""
+    assert len(mps_list) != 0
+    queue = deque(mps_list)
+    if len(queue) == 1:
+        new_mps = mps_list[0].canonicalise()
+        new_mps.compress(temp_m_trunc=temp_m_trunc)
+        return new_mps
+    while len(queue) != 1:
+        batch = [queue.popleft() for _ in range(min(batchsize, len(queue)))]
+        summed = reduce(lambda a, b: a.add(b), batch)
+        summed.canonicalise()
+        summed.compress(temp_m_trunc=temp_m_trunc)
+        queue.append(summed)
+    return queue[0]
 
 
 def cvec2cmat(c: torch.Tensor, qn_mask: np.ndarray) -> torch.Tensor:

@@ -24,8 +24,15 @@ from renormalizer_tpu_torch.mps.lib import select_indices
 from renormalizer_tpu_torch.mps.svd_qn import add_outer
 from renormalizer_tpu_torch.ops.contract import chain_overlap, tensordot1
 from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
+from renormalizer_tpu_torch.utils.utils import sizeof_fmt
 
 logger = logging.getLogger(__name__)
+
+
+def to_numpy(mt: torch.Tensor) -> np.ndarray:
+    """A site tensor as a host array (a lazily conjugated tensor is
+    resolved first)."""
+    return mt.detach().resolve_conj().cpu().numpy()
 
 
 def check_orthogonal(ms: torch.Tensor, left: bool, rtol=None, atol=None) -> bool:
@@ -55,10 +62,65 @@ class MatrixProduct:
         self.qntot: np.ndarray = None
         self.to_right: bool = None
 
+    # --- IO ----------------------------------------------------------------
+    @classmethod
+    def load(cls, model: Model, fname: str):
+        """Load an npz written by :meth:`dump` or by the JAX package's
+        ``dump`` (protocol 0.4, which carries each bond's quantum numbers as
+        a plain ``subqn_{i}`` array: nothing is unpickled)."""
+        npload = np.load(fname)
+        mp = cls()
+        mp.model = model
+        nsites = int(npload["nsites"])
+        for i in range(nsites):
+            mt = npload[f"mt_{i}"]
+            mp.dtype = backend.complex_dtype if np.iscomplexobj(mt) else backend.real_dtype
+            mp.append(mt)
+        qn_size = np.atleast_1d(npload["qntot"]).size
+        mp.qn = [npload[f"subqn_{i}"].astype(int).reshape(-1, qn_size)
+                 for i in range(nsites + 1)]
+        mp.qnidx = int(npload["qnidx"])
+        mp.qntot = np.atleast_1d(npload["qntot"].astype(int))
+        mp.to_right = bool(npload["to_right"])
+        return mp
+
+    def dump(self, fname, other_attrs=None):
+        """npz dump, protocol "0.4" (reference ``mp.py:1085-1113``)."""
+        if other_attrs is None:
+            other_attrs = []
+        elif isinstance(other_attrs, str):
+            other_attrs = [other_attrs]
+        data = {"version": "0.4", "nsites": self.site_num}
+        for i, mt in enumerate(self):
+            data[f"mt_{i}"] = to_numpy(mt)
+        for attr in ["qnidx", "qntot", "to_right"] + other_attrs:
+            data[attr] = getattr(self, attr)
+        arr = np.empty(len(self.qn), object)
+        arr[:] = [np.asarray(q) for q in self.qn]
+        data["qn"] = arr
+        for i, q in enumerate(self.qn):
+            data[f"subqn_{i}"] = np.asarray(q)
+        try:
+            np.savez(fname, **data)
+        except Exception:
+            logger.exception("Dump MP failed.")
+
     # --- basic properties ----------------------------------------------------
     @property
     def site_num(self):
         return len(self._mp)
+
+    @property
+    def threshold(self):
+        return self.compress_config.threshold
+
+    @threshold.setter
+    def threshold(self, v):
+        self.compress_config.threshold = v
+
+    @property
+    def is_complex(self):
+        return self.dtype == backend.complex_dtype
 
     @property
     def is_mps(self):
@@ -75,8 +137,27 @@ class MatrixProduct:
         return [int(mt.shape[0]) for mt in self] + [int(self[-1].shape[-1])]
 
     @property
+    def bond_dims_mean(self) -> int:
+        return int(round(np.mean(self.bond_dims)))
+
+    @property
     def pbond_list(self):
         return self.model.pbond_list
+
+    @property
+    def bond_dims_exact(self) -> np.ndarray:
+        """The largest bond dimensions an exact representation can need."""
+        pbond = np.array(self.pbond_list, dtype=float)
+        if self.is_mpo:
+            pbond = pbond ** 2
+        with np.errstate(over="ignore"):
+            dims1 = [1] + list(np.cumprod(pbond))
+            dims2 = ([1] + list(np.cumprod(pbond[::-1])))[::-1]
+        return np.minimum(dims1, dims2)
+
+    @property
+    def total_bytes(self):
+        return sum(mt.numel() * mt.element_size() for mt in self)
 
     def _get_sigmaqn(self, idx):
         raise NotImplementedError
@@ -86,6 +167,16 @@ class MatrixProduct:
         return tuple(self[idx].shape[1:-1])
 
     # --- qn bookkeeping ------------------------------------------------------
+    def build_empty_qn(self):
+        self.qntot = np.zeros(self.model.qn_size, dtype=int)
+        if self.qnidx is None:
+            self.qnidx = len(self) - 1
+        self.qn = [
+            np.zeros((dim, self.model.qn_size), dtype=int) for dim in self.bond_dims
+        ]
+        if self.to_right is None:
+            self.to_right = False
+
     def move_qnidx(self, dstidx: int):
         """Move the L/R quantum-number boundary (reference ``mp.py:159-172``)."""
         for idx in range(self.qnidx + 1, self.site_num + 1):
@@ -173,18 +264,31 @@ class MatrixProduct:
             self.qnidx = 0
             self.to_right = True
 
-    def _update_ms(self, idx, u, vt, qnlset=None, qnrset=None):
-        """Write QR factors back around site ``idx``
-        (reference ``mp.py:245-295`` without singular values)."""
-        m_trunc = u.shape[1]
-        if self.is_mpo:
-            # keep MPO norms balanced across the bond
-            if self.to_right:
-                norm = torch.linalg.norm(vt)
-                u, vt = u * norm, vt / norm
+    def _update_ms(self, idx, u, vt, sigma=None, qnlset=None, qnrset=None,
+                   m_trunc=None):
+        """Write the (truncated) factors back around site ``idx``
+        (reference ``mp.py:245-295``).  Without ``sigma`` the factors come
+        from a QR; with it (host singular values) from an SVD, and the
+        retained weights go to the side the sweep moves to."""
+        if m_trunc is None:
+            m_trunc = u.shape[1]
+        u = u[:, :m_trunc]
+        vt = vt[:m_trunc, :]
+        if sigma is None:
+            if self.is_mpo:
+                # keep MPO norms balanced across the bond
+                if self.to_right:
+                    norm = torch.linalg.norm(vt)
+                    u, vt = u * norm, vt / norm
+                else:
+                    norm = torch.linalg.norm(u)
+                    u, vt = u / norm, vt * norm
+        else:
+            sigma = backend.tensor(np.asarray(sigma[:m_trunc]), dtype=u.dtype)
+            if self.is_mpo != self.to_right:
+                vt = sigma[:, None] * vt
             else:
-                norm = torch.linalg.norm(u)
-                u, vt = u / norm, vt * norm
+                u = u * sigma[None, :]
         pdim = list(self._pdim(idx))
         if self.to_right:
             self[idx + 1] = tensordot1(vt, self[idx + 1])
@@ -220,6 +324,48 @@ class MatrixProduct:
         if (not self.to_right and idx == 1) or (self.to_right and idx == self.site_num - 2):
             self._switch_direction()
         return self
+
+    # --- compression ---------------------------------------------------------
+    def compress(self, temp_m_trunc=None, ret_s=False):
+        """SVD-compress a canonicalised MP (reference ``mp.py:437-511``).
+        The qn-blocked factors come from the device factorization
+        (:func:`trunc_device.compress_factors`, exact at every size); only
+        the singular values travel to the host, where the cut is chosen."""
+        if self.to_right:
+            assert self.qnidx == 0
+        else:
+            assert self.qnidx == self.site_num - 1
+        if self.compress_config.bonddim_should_set:
+            self.compress_config.set_bonddim(len(self) + 1)
+        system = "L" if self.to_right else "R"
+        sz_before = self.total_bytes
+
+        s_list = []
+        for idx in self.iter_idx_list(full=False):
+            qnbigl, qnbigr, _ = self._get_big_qn([idx])
+            u, sigma, qnlset, v, _, qnrset = trunc_device.compress_factors(
+                self[idx], qnbigl, qnbigr, self.qntot, system)
+            s_list.append(sigma)
+            if temp_m_trunc is None:
+                m_trunc = self.compress_config.compute_m_trunc(sigma, idx, self.to_right)
+            else:
+                if isinstance(temp_m_trunc, (list, tuple, np.ndarray)):
+                    m_trunc = temp_m_trunc[idx + 1 if self.to_right else idx]
+                else:
+                    m_trunc = temp_m_trunc
+                m_trunc = int(min(m_trunc, len(sigma)))
+            self._update_ms(idx, u, v.T, sigma, qnlset, qnrset, m_trunc)
+
+        self._switch_direction()
+        logger.debug(
+            f"size before/after compress: {sizeof_fmt(sz_before)}/"
+            f"{sizeof_fmt(self.total_bytes)}"
+        )
+        if not ret_s:
+            return self
+        max_len = max(len(s) for s in s_list)
+        s_array = np.array([np.pad(np.asarray(s), (0, max_len - len(s))) for s in s_list])
+        return self, s_array
 
     # --- truncation ----------------------------------------------------------
     def _update_mps(self, cstruct, cidx, qnbigl, qnbigr, percent=0):
@@ -294,17 +440,91 @@ class MatrixProduct:
             self.qn[cidx[1]] = msqn
 
     # --- algebra -----------------------------------------------------------------
+    @property
+    def mp_norm(self) -> float:
+        res = chain_overlap(list(self), list(self), conj_first=True).real
+        if res < 0:
+            assert np.abs(res) < 1e-8
+            res = 0
+        return float(np.sqrt(res))
+
+    def add(self, other: "MatrixProduct"):
+        """Direct (block-diagonal) sum of two MPs (reference ``mp.py:374-435``)."""
+        assert np.all(self.qntot == other.qntot)
+        assert self.site_num == other.site_num
+
+        new_mps = self.metacopy()
+        if other.is_complex or self.is_complex:
+            new_mps.dtype = backend.complex_dtype
+        new_mps.compress_config.update(self.compress_config)
+        dtype = new_mps.dtype
+
+        # the bond legs are the first and the last, for MPS and MPO alike
+        new_mps[0] = torch.cat([self[0].to(dtype), other[0].to(dtype)], dim=-1)
+        for i in range(1, self.site_num - 1):
+            mta, mtb = self[i], other[i]
+            assert mta.shape[1:-1] == mtb.shape[1:-1]
+            new_ms = torch.zeros(
+                (mta.shape[0] + mtb.shape[0],) + tuple(mta.shape[1:-1])
+                + (mta.shape[-1] + mtb.shape[-1],),
+                dtype=dtype, device=mta.device)
+            new_ms[: mta.shape[0], ..., : mta.shape[-1]] = mta
+            new_ms[mta.shape[0]:, ..., mta.shape[-1]:] = mtb
+            new_mps[i] = new_ms
+        new_mps[-1] = torch.cat([self[-1].to(dtype), other[-1].to(dtype)], dim=0)
+
+        new_mps.move_qnidx(other.qnidx)
+        new_mps.to_right = other.to_right
+        new_mps.qn = [
+            np.concatenate([np.asarray(q1), np.asarray(q2)])
+            for q1, q2 in zip(self.qn, other.qn)
+        ]
+        new_mps.qn[0] = np.zeros((1, new_mps.qn[0].shape[1]), dtype=int)
+        new_mps.qn[-1] = np.zeros((1, new_mps.qn[0].shape[1]), dtype=int)
+        return new_mps
+
     def dot(self, other: "MatrixProduct") -> complex:
         """Overlap <self*|other> with both taken as-is
         (reference ``mp.py:933-956``)."""
         assert len(self) == len(other)
         return chain_overlap(list(self), list(other))
 
+    def angle(self, other):
+        return abs(self.conj().dot(other))
+
+    def scale(self, val, inplace=False):
+        new_mp = self if inplace else self.copy()
+        if np.iscomplex(val):
+            new_mp.to_complex(inplace=True)
+        else:
+            val = val.real
+        new_mp[self.qnidx] = new_mp[self.qnidx] * val
+        return new_mp
+
     def conj(self):
         new_mp = self.metacopy()
         for idx, mt in enumerate(self):
             new_mp[idx] = mt.conj()
         return new_mp
+
+    def to_complex(self, inplace=False):
+        new_mp = self if inplace else self.metacopy()
+        new_mp.dtype = backend.complex_dtype
+        for i, mt in enumerate(self):
+            if mt is None:
+                continue
+            new_mp[i] = mt.to(backend.complex_dtype)
+        return new_mp
+
+    def distance(self, other) -> float:
+        l1 = self.conj().dot(self)
+        l2 = other.conj().dot(other)
+        l1dotl2 = self.conj().dot(other)
+        d2 = (l1 + l2 - l1dotl2 - l1dotl2.conjugate()).real
+        if d2 < 0:
+            assert d2 / l1.real < 1e-8
+            return 0.0
+        return float(np.sqrt(d2))
 
     def copy(self):
         new = self.metacopy()
@@ -323,6 +543,9 @@ class MatrixProduct:
         new.qntot = None if self.qntot is None else np.asarray(self.qntot).copy()
         new.to_right = self.to_right
         return new
+
+    def build_empty_mp(self, num):
+        self._mp = [None] * num
 
     # --- container protocol -------------------------------------------------------
     def _as_site(self, array) -> torch.Tensor:
@@ -357,5 +580,22 @@ class MatrixProduct:
     def __len__(self):
         return len(self._mp)
 
+    def __add__(self, other):
+        return self.add(other)
+
+    def __sub__(self, other):
+        return self.add(other.scale(-1))
+
+    def __mul__(self, other):
+        assert isinstance(other, (float, complex))
+        return self.scale(other)
+
+    __rmul__ = __mul__
+
     def __repr__(self):
         return "%s with %d sites" % (self.__class__, len(self))
+
+    def __str__(self):
+        return "{} current size: {}, Matrix product bond dim:{}".format(
+            "mps" if self.is_mps else "mpo", sizeof_fmt(self.total_bytes),
+            self.bond_dims)

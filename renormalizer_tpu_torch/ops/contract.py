@@ -89,11 +89,14 @@ def _plan(formula: str, shapes) -> Tuple:
 
 def einsum(formula: str, *arrays: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` contracted pairwise along a cached optimal order.
-    Operands are promoted to a common dtype first (a real MPO with a
-    complex state, for example)."""
+    Operands of mixed dtype are promoted to a common one first; this is a
+    guard only: the evolution converts its MPO and environments to the
+    state's dtype once, so the hot loops arrive here already unified and
+    ``Tensor.to`` returns its argument."""
     dtype = arrays[0].dtype
     for a in arrays[1:]:
-        dtype = torch.promote_types(dtype, a.dtype)
+        if a.dtype != dtype:
+            dtype = torch.promote_types(dtype, a.dtype)
     arrays = [a.to(dtype) for a in arrays]
     if len(arrays) <= 2:
         return torch.einsum(formula, *arrays)

@@ -4,7 +4,15 @@ from renormalizer_tpu_torch.utils.configs import (
     CompressConfig,
     CompressCriteria,
     OptimizeConfig,
+    EvolveConfig,
+    EvolveMethod,
     OFS,
 )
-from renormalizer_tpu_torch.utils.utils import cached_property
+from renormalizer_tpu_torch.utils.rk import RungeKutta, TaylorExpansion
+from renormalizer_tpu_torch.utils.utils import (
+    sizeof_fmt,
+    cached_property,
+    calc_vn_entropy,
+)
 from renormalizer_tpu_torch.utils import log
+from renormalizer_tpu_torch.utils.tdmps import TdMpsJob

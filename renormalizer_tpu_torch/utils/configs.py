@@ -1,9 +1,9 @@
-"""Configuration objects for compression and ground-state optimization.
+"""Configuration objects for compression, ground-state optimization and
+time evolution.
 
-Numpy copy of ``renormalizer_tpu/utils/configs.py`` holding what the DMRG
-slice needs: ``CompressCriteria``, ``OFS``, ``CompressConfig``,
-``OptimizeConfig``.  The time-evolution configs come with the evolution
-slice.
+Numpy copy of ``renormalizer_tpu/utils/configs.py``: ``CompressCriteria``,
+``OFS``, ``CompressConfig``, ``OptimizeConfig``, ``EvolveMethod``,
+``EvolveConfig``.
 """
 
 import logging
@@ -11,6 +11,8 @@ from enum import Enum
 from typing import Union
 
 import numpy as np
+
+from renormalizer_tpu_torch.utils.rk import RungeKutta, TaylorExpansion
 
 logger = logging.getLogger(__name__)
 
@@ -190,3 +192,84 @@ class OptimizeConfig:
         new.__dict__ = self.__dict__.copy()
         new.procedure = self.procedure.copy()
         return new
+
+
+class EvolveMethod(Enum):
+    """Time evolution methods (reference ``configs.py:302-321``)."""
+
+    prop_and_compress = "P&C"
+    prop_and_compress_tdrk4 = "P&C TD RK4"
+    prop_and_compress_tdrk = "P&C TD RK"
+    tdvp_ps = "TDVP PS one-site"
+    tdvp_ps2 = "TDVP PS two-site"
+    tdvp_vmf = "TDVP Variable Mean Field"
+    tdvp_mu_cmf = "TDVP Matrix Unfolding Constant Mean Field"
+    tdvp_mu_vmf = "TDVP Matrix Unfolding Variable Mean Field"
+
+
+class EvolveConfig:
+    """Time evolution configuration (reference ``configs.py:342-416``)."""
+
+    def __init__(
+        self,
+        method: Union[EvolveMethod, str] = EvolveMethod.prop_and_compress,
+        adaptive=False,
+        guess_dt=1e-1,
+        adaptive_rtol=5e-4,
+        taylor_order: int = None,
+        rk_solver="C_RK4",
+        reg_epsilon=1e-10,
+        ivp_rtol=1e-5,
+        ivp_atol=1e-8,
+        ivp_solver="krylov",
+        force_ovlp=True,
+    ):
+        if isinstance(method, str):
+            method = EvolveMethod[method]
+        self.method = method
+        self.adaptive = adaptive
+        self.rk_config = RungeKutta(rk_solver)
+        if taylor_order is None:
+            taylor_order = 5 if adaptive else 4
+        self.taylor_config = TaylorExpansion(taylor_order)
+
+        self.guess_dt: complex = guess_dt
+        self.adaptive_rtol = adaptive_rtol
+
+        self.tdvp_cmf_midpoint = True
+        self.tdvp_cmf_c_trapz = False
+        self.reg_epsilon: float = reg_epsilon
+        self.ivp_rtol: float = ivp_rtol
+        self.ivp_atol: float = ivp_atol
+        self.ivp_solver: str = ivp_solver
+        self.force_ovlp: bool = force_ovlp
+        self.vmf_auto_switch: bool = True
+
+    @property
+    def is_tdvp(self):
+        return self.method not in [
+            EvolveMethod.prop_and_compress,
+            EvolveMethod.prop_and_compress_tdrk4,
+            EvolveMethod.prop_and_compress_tdrk,
+        ]
+
+    def check_valid_dt(self, evolve_dt: complex):
+        """Forbid real/imag mismatch and direction flips
+        (reference ``configs.py:394-402``)."""
+        info = f"in config: {self.guess_dt}, in arg: {evolve_dt}"
+        if np.iscomplex(evolve_dt) ^ np.iscomplex(self.guess_dt):
+            raise ValueError("real and imag not compatible. " + info)
+        if np.iscomplex(evolve_dt):
+            if evolve_dt.imag * self.guess_dt.imag < 0:
+                raise ValueError("evolve into wrong direction. " + info)
+        else:
+            if evolve_dt * self.guess_dt < 0:
+                raise ValueError("evolve into wrong direction. " + info)
+
+    def copy(self):
+        new = self.__class__.__new__(self.__class__)
+        new.__dict__ = self.__dict__.copy()
+        return new
+
+    def __str__(self):
+        return "".join(f"\n{k}: {v}" for k, v in self.__dict__.items())

@@ -1,5 +1,7 @@
-"""The PyTorch port imports and runs its DMRG slice with jax unimportable."""
+"""The PyTorch port imports every module and runs its DMRG and evolution
+slices with jax unimportable."""
 
+import ast
 import json
 import os
 import subprocess
@@ -15,8 +17,13 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np
 import torch
 torch.set_num_threads(2)
+import importlib, pkgutil
 import renormalizer_tpu_torch as rt
 from renormalizer_tpu_torch.utils import constant
+
+modules = [m.name for m in pkgutil.walk_packages(rt.__path__, "renormalizer_tpu_torch.")]
+for name in modules:
+    importlib.import_module(name)
 
 q = rt.Quantity
 j = np.array([[0.0, -0.1, -0.2], [-0.1, 0.0, -0.3], [-0.2, -0.3, 0.0]]) / constant.au2ev
@@ -28,7 +35,14 @@ mpo = rt.Mpo(model)
 mps = rt.Mps.random(model, 1, 10, percent=1.0)
 mps.optimize_config.procedure = [[10, 0.4], [10, 0]]
 energies, _ = rt.optimize_mps(mps, mpo)
+
+from renormalizer_tpu_torch.sbm import SpinBosonDynamics, param2mollist
+sbm = SpinBosonDynamics(param2mollist(0.05, q(1), q(20), 1, 3),
+                        evolve_config=rt.EvolveConfig(rt.EvolveMethod.tdvp_ps))
+sbm.evolve(evolve_dt=0.2, nsteps=2)
 print(json.dumps({
+    "modules": modules,
+    "sigma_z": sbm.sigma_z,
     "jax_modules": sorted(m for m, mod in sys.modules.items()
                           if mod is not None and m.split(".")[0] in ("jax", "jaxlib")),
     "renormalizer_tpu": [m for m in sys.modules
@@ -50,8 +64,43 @@ def test_port_runs_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["jax_modules"] == []
     assert out["renormalizer_tpu"] == []
+    for name in ("sbm.sbm", "sbm.lib", "utils.tdmps", "utils.rk", "lib.solvers",
+                 "interop"):
+        assert "renormalizer_tpu_torch." + name in out["modules"]
+    # 0.76317132 is the dense expm value of sigma_z(0.4) for this model
+    assert out["sigma_z"][0] == 1.0 and abs(out["sigma_z"][2] - 0.76317132) < 1e-6
     assert out["mpo_bond_dims"][0] == out["mpo_bond_dims"][-1] == 1
     assert len(out["mpo_bond_dims"]) == 10
     # two sweeps at M=10 already sit within 1e-4 of the regression value
     gs_e = 0.08401412 + out["gs_zpe"]
     assert abs(out["energy"] - gs_e) < 1e-4 * gs_e
+
+
+def _port_sources():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(repo, "chip_smoke.py"), os.path.join(repo, "energy_witness.py")]
+    for root, dirs, files in os.walk(os.path.join(repo, "renormalizer_tpu_torch")):
+        if "_build" in dirs:
+            dirs.remove("_build")  # build output, not source
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    """Every import statement of the port, the chip smoke script and the
+    energy witness, read from the syntax tree."""
+    paths = _port_sources()
+    assert len(paths) > 30
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "renormalizer_tpu"), (
+                    path, name)
