@@ -29,7 +29,7 @@ Phases (any failure exits non-zero):
      and on a 3-mode spin-boson model through SpinBosonDynamics (sigma_z),
      against scipy.linalg.expm of a kron-assembled dense Hamiltonian: mean
      cumulative deviation < 1e-4, norm within 1e-5 of 1, all finite;
-  6. the evolution path at full width, one first step and 4 timed steps of
+  6. the evolution path at full width, one first step and 2 timed steps of
      TDVP-PS (dt 0.2) each: (a) the 32-site spin-boson chain at M=48 from a
      random state, (b) the qn-structured 6-molecule, 4-level Holstein chain
      at M=48, (c) the DMRG path's 6-level chain at M=256, (d) the
@@ -42,9 +42,30 @@ Phases (any failure exits non-zero):
      constant within ENERGY_RTOL * max(1, |E|), all tensors finite; in (d)
      sigma_z(0) = 1 and |sigma_z| <= 1 + 1e-5.  Prints seconds per step, bond
      dimensions and the site visits by branch (fused / unfused).
+  8. the finite-temperature path against dense oracles, on the JAX package's
+     test models: (a) ThermalProp (TDVP-PS) of 3 molecules at 1500 K, the
+     electronic occupations within 1e-4 of the dense thermal populations;
+     (b) TransportKubo of 5 molecules at 50000 K, M=24, TDVP-PS in imaginary
+     and real time, C(t) within 5e-2 of the dense Liouville correlation; (c)
+     SpectraFiniteT absorption, C(t) within SPECTRA_RTOL |C(0)| of the dense
+     two-way oracle; (d) P&C, adaptive P&C, RK4 and Butcher-tableau RK on
+     the 3-molecule, 2-level chain, occupations within 1e-4 (mean cumulative
+     deviation) of scipy.linalg.expm;
+  9. TransportKubo at full width on the bench chain (18 sites, 298 K, M=64):
+     10 imaginary-time TDVP-PS steps to beta/2, the current operator applied
+     and compressed, then one first and four timed real-time steps of 20 a.u.
+     (bra and ket one TDVP-PS step each).  Prints the seconds of each; the
+     thermal state finite, its electronic occupations summing to 1 within
+     1e-4 and its energy below that of beta = 0; bra and ket norms within
+     NORM_TOL and <H> within ENERGY_RTOL max(1, |E|) of their first values;
+     |Im C(0)| <= 1e-4 |C(0)| and |C(t)| <= 1.001 |C(0)|.  The constructor's
+     Jacobi launches are recorded as in 6(d): none at the sweep cap, none of
+     a shape that phase 3 did not hold (KUBO_PATH_GRAMS), every one solved
+     again by torch.linalg.eigh inside phase 3's f32 tolerances.
 A [summary] line repeats the run's times as JSON, so that the end of the
 output carries them.  The line before the last holds the kernel record as
-JSON; the last line is
+JSON (with the launches of each path: DMRG, SpinBosonDynamics,
+TransportKubo); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
 
@@ -52,8 +73,9 @@ no result.
 
 runs the DMRG main path under torch.profiler and adds its device time per
 kernel and the card's busy share of that run's wall time; then (phase 7) it
-does the same for one more TDVP-PS step of each of 6(a)-(d) and counts that
-step's host synchronisations.
+does the same for one more step of each of 6(a)-(d) and of the Kubo job of
+phase 9, and counts that step's host synchronisations by the operator that
+asked for them.
 """
 
 import collections
@@ -82,6 +104,18 @@ NORM_TOL = 1e-4
 # 6(d) solves (32 sites, M=48); phase 3 holds the kernel against its plain
 # version at each, and 6(d) fails if it solves a shape that is not listed
 EVOLVE_PATH_GRAMS = (2, 3, 8, 9, 12, 27, 32, 39, 48, 75)
+# n of the (1, n, n) f32 Grams that the TransportKubo constructor of phase 9
+# solves (the bench chain, M=64); phase 3 holds the kernel against its plain
+# version at each n <= 288 and at the largest, and phase 9 fails on a shape
+# that is not listed
+KUBO_PATH_GRAMS = (2, 6, 8, 10, 14, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27,
+                   28, 29, 30, 31, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43,
+                   44, 49, 50, 51, 52, 54, 55, 58, 64, 71, 78, 82, 84, 91, 92,
+                   95, 97, 100, 101, 103, 106)
+# phase 8(a)'s imaginary-time steps to beta/2, and 8(c)'s bound on
+# |C - C_dense| / |C(0)|
+THERMAL_STEPS = 20
+SPECTRA_RTOL = 1e-5
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): FP32 outside the
 # tensor cores, HBM3 bandwidth
 FP32_FLOPS = 67e12
@@ -223,6 +257,11 @@ def phase_kernels():
     # solves: n below one block of 16, and n that the wrapper pads to 32, to
     # 64 (39, 48) and to 96 (75)
     cases += [((1, n, n), torch.float32, 6000 + n) for n in EVOLVE_PATH_GRAMS]
+    # and every n of the TransportKubo constructor of phase 9 up to 288, and
+    # its largest
+    kubo_n = sorted(({n for n in KUBO_PATH_GRAMS if n <= 288}
+                     | set(sorted(KUBO_PATH_GRAMS)[-1:])) - set(EVOLVE_PATH_GRAMS))
+    cases += [((1, n, n), torch.float32, 7000 + n) for n in kubo_n]
     main_err = None
     for shape, dt, seed in cases:
         a = _symmetric(rng if seed is None else np.random.default_rng(seed),
@@ -370,6 +409,25 @@ class GramRecord:
         print(f"{tag} the path's own {count} Grams: kernel (as the path got "
               f"it) and plain inside the phase-3 tolerances; largest "
               f"|w - w_plain| {worst:.2e}·|A|", flush=True)
+
+    def check_against_library(self, tag, tol):
+        """Every kept Gram, with the eigenpairs the kernel gave the path,
+        solved again by torch.linalg.eigh (in f64): the kernel's eigenvalues,
+        |V^T V - I| and |AV - VL| inside the phase-3 f32 tolerances (relative
+        to ||A||_F, grown as n / 288 past n = 288)."""
+        import torch
+
+        worst, count = [0.0, 0.0, 0.0], 0
+        for n, kept in sorted(self.kept.items()):
+            g, w, v = (torch.cat(parts) for parts in zip(*kept))
+            grow = max(1.0, n / 288)
+            errs = _eigh_errors(g, w, v)
+            _check_eigh(f"{tag} n={n} kernel", errs, {k: t * grow for k, t in tol.items()})
+            worst = [max(a, b) for a, b in zip(worst, errs)]
+            count += len(g)
+        print(f"{tag} the path's own {count} Grams against torch.linalg.eigh: "
+              f"inside the phase-3 tolerances; largest eig/orth/resid "
+              f"{' '.join(f'{e:.2e}' for e in worst)}", flush=True)
 
 
 def phase_main_path(card):
@@ -565,7 +623,7 @@ class StepChecks:
               flush=True)
 
 
-def run_steps(tag, card, step, state, checks, nsteps=5):
+def run_steps(tag, card, step, state, checks, nsteps=3):
     """One first step (bond growth, plan caching) and ``nsteps - 1`` timed
     ones, each between two device syncs.  ``step(state)`` returns the next
     state; ``checks(state)`` runs outside the timed region."""
@@ -682,8 +740,287 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
     return launches, timed
 
 
+def _sector_of(model, dim):
+    """Exciton number of every dense basis state of ``model``."""
+    import numpy as np
+
+    dims = model.pbond_list
+    return np.array([sum(model.basis[i].sigmaqn[np.unravel_index(s, dims)[i]][0]
+                         for i in range(len(dims))) for s in range(dim)])
+
+
+def phase_finite_t_oracles():
+    """Phase 8: the finite-temperature path on small models against dense
+    oracles, with the JAX package's own tests' bounds."""
+    import numpy as np
+    import scipy.linalg
+
+    from renormalizer_tpu_torch import (
+        CompressConfig, CompressCriteria, EvolveConfig, EvolveMethod,
+        HolsteinModel, MpDm, Mol, Mpo, Mps, Op, Phonon, Quantity, ThermalProp)
+    from renormalizer_tpu_torch.spectra import SpectraFiniteT
+    from renormalizer_tpu_torch.transport import TransportKubo
+    from renormalizer_tpu_torch.transport.kubo import (
+        derive_current_terms, pbc_chain_distances)
+
+    tdvp = EvolveConfig(EvolveMethod.tdvp_ps)
+    # (a) the thermal state of tests/test_apps.py:540-550: 3 molecules, one
+    # 3-level phonon each, 1500 K.  That test takes beta/2 (105 a.u.) in 10
+    # TDVP-PS steps in fp64 (occupations 6.6e-6 off the dense ones on the
+    # CPU); in fp32 steps that long leave 2.2e-4 (the CPU), 20 steps 4.6e-7
+    ph = Phonon.simple_phonon(Quantity(1.0), Quantity(0.6), 3)
+    model = HolsteinModel([Mol(Quantity(0.0), [ph], 1.0)] * 3, Quantity(0.1))
+    beta = Quantity(1500.0, "K").to_beta()
+    t0 = time.perf_counter()
+    tp = ThermalProp(MpDm.max_entangled_ex(model), evolve_config=tdvp)
+    tp.evolve(None, THERMAL_STEPS, beta / 2j)
+    seconds = time.perf_counter() - t0
+    h = dense_operator(model, model.ham_terms).real
+    s1 = np.nonzero(_sector_of(model, len(h)) == 1)[0]
+    rho = scipy.linalg.expm(-beta * h[np.ix_(s1, s1)])
+    rho /= np.trace(rho)
+    pops = np.array([np.trace(rho @ dense_operator(model, [Op(r"a^\dagger a", dof)])
+                              .real[np.ix_(s1, s1)]) for dof in model.e_dofs])
+    occ = tp.e_occupations_array[-1]
+    dev = float(np.abs(occ - pops).max())
+    print(f"[finite-T a] ThermalProp 3 molecules x 3 levels, 1500 K, "
+          f"{THERMAL_STEPS} TDVP-PS steps in {seconds:.2f} s: occupations {np.round(occ, 6).tolist()}, "
+          f"dense {np.round(pops, 6).tolist()}, largest deviation {dev:.3e} "
+          f"(bound 1e-4); energies {np.round(tp.energies, 6).tolist()}", flush=True)
+    check(_all_finite(tp.latest_mps), "[finite-T a] non-finite density matrix")
+    check(dev < 1e-4, f"[finite-T a] occupations off the dense ones by {dev}")
+
+    # (b) TransportKubo of tests/test_apps.py:425-430 with fixed steps
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 5, Quantity(1), 3)
+    temperature = Quantity(50000, "K")
+    t0 = time.perf_counter()
+    kubo = TransportKubo(
+        model, temperature,
+        compress_config=CompressConfig(CompressCriteria.fixed, max_bonddim=24),
+        ievolve_config=EvolveConfig(EvolveMethod.tdvp_ps), insteps=10,
+        evolve_config=EvolveConfig(EvolveMethod.tdvp_ps))
+    kubo.evolve(evolve_dt=0.5, nsteps=10)
+    seconds = time.perf_counter() - t0
+    h = dense_operator(model, model.ham_terms).real
+    s1 = np.nonzero(_sector_of(model, len(h)) == 1)[0]
+    h1 = h[np.ix_(s1, s1)]
+    bare, _ = derive_current_terms(model, pbc_chain_distances(model.n_edofs))
+    j1 = dense_operator(model, bare).real[np.ix_(s1, s1)]
+    rho = scipy.linalg.expm(-temperature.to_beta() * h1)
+    rho /= np.trace(rho)
+    energies, vecs = np.linalg.eigh(h1)
+    rho_e, j_e = vecs.T @ rho @ vecs, vecs.T @ j1 @ vecs
+    oracle = np.array([
+        -np.trace(rho_e @ ((np.exp(1j * energies * t)[:, None] * j_e)
+                           * np.exp(-1j * energies * t)[None, :]) @ j_e)
+        for t in kubo.evolve_times_array])
+    corr = kubo.auto_corr
+    rel = np.abs(corr - oracle) / np.abs(oracle)
+    print(f"[finite-T b] TransportKubo 5 molecules, 50000 K, M=24, 10 + 10 "
+          f"TDVP-PS steps in {seconds:.2f} s: largest |C - C_dense| / |C_dense| "
+          f"{rel.max():.3e} (bound 5e-2); C(t) "
+          f"{[complex(round(c.real, 5), round(c.imag, 5)) for c in corr]}", flush=True)
+    check(np.isfinite(corr).all(), "[finite-T b] non-finite C(t)")
+    check(bool(np.all(np.abs(corr - oracle) <= 5e-2 * np.abs(oracle) + 1e-8)),
+          f"[finite-T b] C(t) off the dense oracle by {rel.max()}")
+
+    # (c) SpectraFiniteT("abs") of tests/test_apps.py:495-501
+    ph = Phonon.simple_phonon(Quantity(1.0), Quantity(0.4), 2)
+    model = HolsteinModel([Mol(Quantity(1.0), [ph], 1.0)] * 2, Quantity(0.2))
+    temperature = Quantity(0.2, "a.u.")
+    dt, n = 0.4, 5
+    job = SpectraFiniteT(model, "abs", temperature, 20, Quantity(0), evolve_config=tdvp)
+    job.evolve(evolve_dt=dt, nsteps=n)
+    h = dense_operator(model, model.ham_terms)
+    s0 = np.nonzero(_sector_of(model, len(h)) == 0)[0]
+    rho_h = np.zeros_like(h)
+    rho_h[np.ix_(s0, s0)] = scipy.linalg.expm(-temperature.to_beta() / 2 * h[np.ix_(s0, s0)])
+    rho_h /= np.linalg.norm(rho_h)
+    mu = dense_operator(model, [Op(r"a^\dagger", d, 1.0) for d in model.e_dofs])
+    u = scipy.linalg.expm(-1j * h * dt)
+    u_gs = scipy.linalg.expm(1j * dense_operator(
+        model, [Op(r"b^\dagger b", d, 1.0) for d in model.v_dofs]) * dt)
+    ket = mu @ rho_h
+    bra = ket.copy()
+    oracle = [np.trace(bra.conj().T @ ket)]
+    for i in range(1, n + 1):
+        if i % 2 == 1:
+            ket = u @ ket @ u_gs
+        else:
+            bra = u.conj().T @ bra @ u_gs.conj().T
+        oracle.append(np.trace(bra.conj().T @ ket))
+    dev = float(np.abs(np.asarray(job.autocorr) - np.array(oracle)).max() / abs(oracle[0]))
+    print(f"[finite-T c] SpectraFiniteT abs, 2 molecules, {n} TDVP-PS steps of "
+          f"{dt}: largest |C - C_dense| {dev:.3e} of |C(0)| (bound "
+          f"{SPECTRA_RTOL:.0e})", flush=True)
+    check(dev < SPECTRA_RTOL, f"[finite-T c] autocorrelation off by {dev}")
+
+    # (d) the P&C family on tests/fixtures.py's exact_model from the start
+    # state of tests/test_evolve.py:36-42, as tests/test_evolve.py:71-97
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
+    init = Mpo.onsite(model, r"a^\dagger", dof_set=[0]) @ Mps.ground_state(model, False)
+    init = init.expand_bond_dimension(hint_mpo=Mpo(model))
+    e0 = init.expectation(Mpo(model))
+    mpo = Mpo(model, offset=Quantity(e0))
+    h = dense_operator(model, model.ham_terms) - e0 * np.eye(2 ** 6)
+    occ_ops = [dense_operator(model, [Op(r"a^\dagger a", dof)]) for dof in model.e_dofs]
+    psi0 = init.todense().astype(complex)
+    for tag, config, dt, nsteps in (
+            ("P&C", EvolveConfig(EvolveMethod.prop_and_compress), 0.2, 10),
+            ("P&C adaptive", EvolveConfig(EvolveMethod.prop_and_compress,
+                                          adaptive=True, guess_dt=0.2), 1.0, 2),
+            ("tdrk4", EvolveConfig(EvolveMethod.prop_and_compress_tdrk4), 0.2, 10),
+            ("tdrk", EvolveConfig(EvolveMethod.prop_and_compress_tdrk), 0.2, 10)):
+        mps = init.copy()
+        mps.compress_config = CompressConfig(CompressCriteria.fixed)
+        mps.evolve_config = config
+        deviations = []
+        t0 = time.perf_counter()
+        for i in range(1, nsteps + 1):
+            mps = mps.evolve(mpo, dt)
+            psi = scipy.linalg.expm(-1j * h * dt * i) @ psi0
+            dense = [np.real(psi.conj() @ o @ psi) for o in occ_ops]
+            deviations.append(float(np.abs(mps.e_occupations - dense).mean()))
+        mcd = float(np.mean(deviations))
+        print(f"[finite-T d] {tag}: {nsteps} steps of {dt} in "
+              f"{time.perf_counter() - t0:.2f} s, e_occupations mean cumulative "
+              f"deviation {mcd:.3e} (bound 1e-4), bond dims {mps.bond_dims}",
+              flush=True)
+        check(_all_finite(mps), f"[finite-T d] {tag}: non-finite MPS")
+        check(mcd < 1e-4, f"[finite-T d] {tag}: deviation {mcd}")
+
+
+def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
+    """Phase 9: ``TransportKubo`` at full width on the bench chain (and with
+    ``profile`` one more real-time step under torch.profiler, phase 7).
+    Returns the Jacobi launches of the job's constructor, the seconds per
+    imaginary-time step and per timed real-time step."""
+    import numpy as np
+    import torch
+
+    from renormalizer_tpu_torch import (
+        CompressConfig, CompressCriteria, EvolveConfig, EvolveMethod, MpDm,
+        Mpo, Quantity)
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.mps import thermalprop, trunc_device
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.transport import kubo as kubo_module
+
+    tag = f"[kubo] holstein 6x(1+2) 6 levels, 298 K, M={m}"
+    model = holstein_chain(6)
+    thermal_seconds, props = [], []
+    base = thermalprop.ThermalProp
+
+    class TimedThermalProp(base):
+        """The job's ThermalProp, kept, with each step between two syncs."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            props.append(self)
+
+        def evolve_single_step(self, evolve_dt):
+            backend.sync()
+            t0 = time.perf_counter()
+            out = super().evolve_single_step(evolve_dt)
+            backend.sync()
+            thermal_seconds.append(time.perf_counter() - t0)
+            return out
+
+    grams = GramRecord(keep_grams=True)
+    kubo_module.ThermalProp = TimedThermalProp
+    trunc_device.jacobi_eigh = grams
+    try:
+        jacobi_eigh.launches = 0
+        trunc_device.LINALG_EIGH_GRAMS = 0
+        backend.sync()
+        t0 = time.perf_counter()
+        kubo = kubo_module.TransportKubo(
+            model, Quantity(298, "K"),
+            compress_config=CompressConfig(CompressCriteria.fixed, max_bonddim=m),
+            ievolve_config=EvolveConfig(EvolveMethod.tdvp_ps), insteps=insteps,
+            evolve_config=EvolveConfig(EvolveMethod.tdvp_ps))
+        backend.sync()
+        construct_s = time.perf_counter() - t0
+        launches, elsewhere = jacobi_eigh.launches, trunc_device.LINALG_EIGH_GRAMS
+    finally:
+        kubo_module.ThermalProp = base
+        trunc_device.jacobi_eigh = jacobi_eigh
+    tp = props[0]
+    rho = tp.latest_mps
+    n_e = float(tp.e_occupations_array[-1].sum())
+    print(f"{tag}: constructor {construct_s:.2f} s, of it {sum(thermal_seconds):.2f} s "
+          f"in {len(thermal_seconds)} imaginary-time steps "
+          f"({[round(t, 4) for t in thermal_seconds]} s; "
+          f"{np.mean(thermal_seconds):.4f} s/step, {card}); init_mps (current "
+          f"operator applied and compressed) and expansion "
+          f"{construct_s - sum(thermal_seconds):.2f} s; thermal bond dims "
+          f"{rho.bond_dims}", flush=True)
+    print(f"{tag}: thermal energies {np.round(tp.energies, 6).tolist()}; "
+          f"sum of e-occupations at beta/2 {n_e:.7f}", flush=True)
+    check(_all_finite(rho), f"{tag}: non-finite thermal state")
+    check(abs(n_e - 1) < 1e-4, f"{tag}: sum of electronic occupations {n_e}")
+    check(tp.energies[-1] < tp.energies[0],
+          f"{tag}: energy at beta/2 {tp.energies[-1]} not below {tp.energies[0]}")
+    print(f"{tag}: jacobi launches {launches}, real Gram eigh elsewhere "
+          f"{elsewhere}", flush=True)
+    check(launches > 0, f"{tag}: the job never launched the Jacobi kernel")
+    check(elsewhere == 0, f"{tag}: {elsewhere} real Gram eigh went around the kernel")
+    hist = grams.report("[kubo]", launches)
+    unheld = sorted(set(hist) - {(1, n) for n in KUBO_PATH_GRAMS})
+    if m == 64:
+        check(not unheld, f"{tag}: Gram shapes {unheld} are not among the phase-3 "
+              f"cases (KUBO_PATH_GRAMS)")
+    grams.check_against_library("[kubo]", gram_tol)
+
+    pairs = kubo.latest_mps
+    bra, ket = pairs.bra_mps, pairs.ket_mps
+    check(isinstance(bra, MpDm) and not bra.is_complex, f"{tag}: bad start pair")
+    readings = {"bra": [], "ket": []}
+
+    def step_checks(job):
+        for name, mp in zip(("bra", "ket"), job.latest_mps):
+            norm = mp.mp_norm * abs(mp.coeff)
+            energy = complex(mp.expectation(job.h_mpo)).real
+            readings[name].append((norm, energy))
+            n0, e0 = readings[name][0]
+            check(_all_finite(mp), f"{tag}: non-finite {name}")
+            check(abs(norm - n0) <= NORM_TOL * n0, f"{tag}: {name} norm {n0} -> {norm}")
+            check(abs(energy - e0) <= ENERGY_RTOL * max(1.0, abs(e0)),
+                  f"{tag}: {name} <H> moved from {e0} to {energy}")
+
+    step_checks(kubo)
+    complex0 = trunc_device.LINALG_EIGH_GRAMS
+    seconds = []
+    for _ in range(nsteps):
+        backend.sync()
+        t0 = time.perf_counter()
+        kubo.evolve(evolve_dt=20.0, nsteps=1)
+        backend.sync()
+        seconds.append(time.perf_counter() - t0)
+        step_checks(kubo)
+    corr = kubo.auto_corr
+    drift = {k: max(abs(e - v[0][1]) for _, e in v) for k, v in readings.items()}
+    print(f"{tag}: real-time steps of 20 a.u. (bra and ket one TDVP-PS step each, "
+          f"then ft; {card}): first {seconds[0]:.4f} s, timed "
+          f"{[round(t, 4) for t in seconds[1:]]} s; <H> drift bra {drift['bra']:.3e} "
+          f"ket {drift['ket']:.3e}; complex Gram eigh through torch.linalg.eigh "
+          f"{trunc_device.LINALG_EIGH_GRAMS - complex0}", flush=True)
+    print(f"{tag}: C(t) {[f'{c:.6e}' for c in corr]}; "
+          f"mobility {kubo.calc_mobility()[1]:.6g} cm^2/(V s) over "
+          f"{kubo.evolve_times[-1]:.0f} a.u.", flush=True)
+    c0 = abs(corr[0])
+    check(np.isfinite(corr).all(), f"{tag}: non-finite C(t)")
+    check(abs(corr[0].imag) <= 1e-4 * c0, f"{tag}: C(0) = {corr[0]} is not real")
+    check(bool(np.all(np.abs(corr) <= 1.001 * c0)), f"{tag}: |C(t)| grew past |C(0)|")
+    if profile:
+        phase_profile_step(card, "[kubo]", lambda: kubo.evolve(evolve_dt=20.0, nsteps=1))
+    return launches, thermal_seconds, seconds[1:]
+
+
 def phase_profile_step(card, tag, step):
-    """Phase 7: one more TDVP-PS step (``step()``) under torch.profiler."""
+    """Phase 7: one more evolution step (``step()``) under torch.profiler."""
     import torch
 
     from renormalizer_tpu_torch.backend import backend
@@ -708,6 +1045,31 @@ def phase_profile_step(card, tag, step):
           f"{dict(sorted(waits.items()))}; "
           f"{sum(v for k, v in waits.items() if 'Synchronize' in k)} waits, the "
           f"closing backend.sync() included", flush=True)
+    owners = collections.Counter(
+        _sync_owner(e) for e in prof.events()
+        if "Synchronize" in e.name or "Memcpy DtoH" in e.name)
+    print(f"[profile] ({card}) the step's synchronisations by the operator that "
+          f"asked for them: {dict(owners.most_common())}", flush=True)
+
+
+# operators whose host reads belong to a library's algorithm (cuSOLVER's and
+# cuBLAS's info/pivot reads), not to the port's own code
+_LIBRARY_OPS = ("linalg", "cholesky", "eigh", "_qr", "svd", "lu", "triangular")
+
+
+def _sync_owner(event):
+    """Who waited: ``library <op>`` for a synchronisation inside a linear
+    algebra operator, ``port <op>`` for one asked for by an ``.item()``,
+    ``.cpu()`` or ``bool(tensor)`` of the port's own (the outermost aten
+    operator around it), ``unattributed`` without a parent."""
+    chain, parent = [], event.cpu_parent
+    while parent is not None:
+        chain.append(parent.name)
+        parent = parent.cpu_parent
+    for name in chain:
+        if any(k in name for k in _LIBRARY_OPS):
+            return f"library {name}"
+    return f"port {chain[-1]}" if chain else "unattributed"
 
 
 def print_device_breakdown(prof, wall_s, card, top=10):
@@ -763,6 +1125,8 @@ def main():
         print_device_breakdown(prof, wall_s, card)
     phase_oracle()
     evolve_launches, steps = phase_evolution(card, profile, record["tol_f32"])
+    phase_finite_t_oracles()
+    kubo_launches, thermal_s, kubo_s = phase_kubo(card, profile, record["tol_f32"])
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -770,16 +1134,22 @@ def main():
         "card": card, "dmrg_seconds": round(wall_s, 4),
         "tdvp_ps_timed_step_seconds": {
             k: [round(t, 4) for t in v] for k, v in steps.items()},
+        "kubo_thermal_step_seconds": [round(t, 4) for t in thermal_s],
+        "kubo_timed_step_seconds": [round(t, 4) for t in kubo_s],
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
                     for k, v in record["timed"].items()}}), flush=True)
+    by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
+               "transport_kubo": kubo_launches}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
-          f"SpinBosonDynamics constructor {evolve_launches}", flush=True)
+          f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
+          f"constructor {kubo_launches}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,
         "replaces": JACOBI_REPLACES, "launches": launches,
+        "launches_by_path": by_path,
         "max_abs_err": record["max_abs_err"], "ms": steady["kernel"],
         "plain_ms": steady["plain"], "bound_ms": steady["bound_ms"],
         "bound_by": steady["bound_by"],

@@ -1,10 +1,12 @@
 """renormalizer_tpu_torch — the PyTorch + CUDA port of renormalizer_tpu.
 
-DMRG and real-time dynamics for electron-phonon and spin-boson models on
-MPS/MPO, running on one NVIDIA Hopper card (or on the CPU for tests).  The
-port carries the 2-site DMRG main path and the one-site TDVP-PS evolution
-(with the spin-boson job in ``renormalizer_tpu_torch.sbm``) of the
-JAX package ``renormalizer_tpu``, which stays the reference; its one
+DMRG, real-time dynamics and finite-temperature density matrices for
+electron-phonon and spin-boson models on MPS/MPO, running on one NVIDIA
+Hopper card (or on the CPU for tests).  The port carries the 2-site DMRG main
+path, the one-site TDVP-PS and propagate-and-compress evolution, the thermal
+density matrix (``MpDm``, ``ThermalProp``) and the jobs built on them
+(``sbm``, ``spectra``, ``transport.TransportKubo``) of the JAX package
+``renormalizer_tpu``, which stays the reference; its one
 hand-written kernel (the Jacobi eigensolver of the truncation step) lives in
 ``csrc/`` and is built with ``nvcc`` at first use.  The port imports torch,
 numpy and scipy, never jax.
@@ -32,6 +34,15 @@ from renormalizer_tpu_torch.utils import (
     Quantity,
     TdMpsJob,
 )
-from renormalizer_tpu_torch.mps import Mps, Mpo, compressed_sum, optimize_mps
+from renormalizer_tpu_torch.mps import (
+    BraKetPair,
+    MpDm,
+    Mpo,
+    Mps,
+    ThermalProp,
+    compressed_sum,
+    load_thermal_state,
+    optimize_mps,
+)
 
 __version__ = "0.1.0"

@@ -3,7 +3,8 @@
 The tests start the JAX package and the port from one state: the JAX site
 tensors travel as numpy arrays (``np.asarray(jax_mps[i])``) together with
 the quantum-number bookkeeping, and ``mps_from_numpy``/``mpo_from_numpy``
-rebuild the port's objects around them on the backend device.
+rebuild the port's objects around them on the backend device
+(``mpdm_from_object`` for a density matrix with 4-leg sites).
 ``mps_to_numpy`` is the way back: everything another implementation needs
 to rebuild an (evolved) port state.
 """
@@ -14,6 +15,7 @@ import numpy as np
 
 from renormalizer_tpu_torch.model import Model
 from renormalizer_tpu_torch.mps.mp import to_numpy
+from renormalizer_tpu_torch.mps.mpdm import MpDm
 from renormalizer_tpu_torch.mps.mpo import Mpo
 from renormalizer_tpu_torch.mps.mps import Mps
 from renormalizer_tpu_torch.utils import (
@@ -42,13 +44,14 @@ def _fill(mp, model: Model, arrays: Sequence[np.ndarray], qn, qnidx: int,
 
 def mps_from_numpy(model: Model, arrays, qn, qnidx: int, to_right: bool,
                    qntot, coeff=1, compress_config=None,
-                   evolve_config=None) -> Mps:
-    """An :class:`Mps` holding ``arrays`` (one (l, d, r) array per site) with
-    bond quantum numbers ``qn`` (one (dim, qn_size) array per bond) and the
+                   evolve_config=None, cls=Mps) -> Mps:
+    """An :class:`Mps` (or ``cls``, e.g. :class:`MpDm` for (l, d, d, r)
+    sites) holding ``arrays`` (one (l, d, r) array per site) with bond
+    quantum numbers ``qn`` (one (dim, qn_size) array per bond) and the
     scalar prefactor ``coeff``.  ``compress_config``/``evolve_config`` may be
     the port's objects or another implementation's with the same fields
     (see :func:`carry_compress_config`, :func:`carry_evolve_config`)."""
-    mps = _fill(Mps(), model, arrays, qn, qnidx, to_right, qntot)
+    mps = _fill(cls(), model, arrays, qn, qnidx, to_right, qntot)
     mps.coeff = coeff
     if compress_config is not None:
         mps.compress_config = carry_compress_config(compress_config)
@@ -57,7 +60,7 @@ def mps_from_numpy(model: Model, arrays, qn, qnidx: int, to_right: bool,
     return mps
 
 
-def mps_from_object(model: Model, other) -> Mps:
+def mps_from_object(model: Model, other, cls=Mps) -> Mps:
     """The port's copy of ``other``: any MPS object with the JAX package's
     fields (an iterable of site arrays that ``np.asarray`` accepts, ``qn``,
     ``qnidx``, ``to_right``, ``qntot``, ``coeff``, ``compress_config``,
@@ -66,7 +69,16 @@ def mps_from_object(model: Model, other) -> Mps:
         model, [np.asarray(mt) for mt in other], other.qn, other.qnidx,
         other.to_right, other.qntot, coeff=other.coeff,
         compress_config=other.compress_config,
-        evolve_config=other.evolve_config)
+        evolve_config=other.evolve_config, cls=cls)
+
+
+def mpdm_from_object(model: Model, other) -> MpDm:
+    """The port's copy of a density matrix ``other`` with the JAX package's
+    ``MpDm`` fields: (l, d, d, r) sites whose quantum numbers sit on the bra
+    index, with ``qn``, ``qnidx``, ``qntot``, ``to_right``, ``coeff`` and
+    the compress and evolve configs."""
+    assert all(np.ndim(mt) == 4 for mt in other), "not a density matrix"
+    return mps_from_object(model, other, cls=MpDm)
 
 
 def mps_to_numpy(mps: Mps) -> dict:
@@ -94,11 +106,13 @@ def carry_compress_config(other) -> CompressConfig:
 
 
 def carry_evolve_config(other) -> EvolveConfig:
-    """The port's ``EvolveConfig`` with the method and the adaptive-step
-    fields of ``other``."""
+    """The port's ``EvolveConfig`` with the method, the adaptive-step fields,
+    the Taylor order and the Runge-Kutta tableau of ``other``."""
     return EvolveConfig(EvolveMethod[other.method.name],
                         adaptive=other.adaptive, guess_dt=other.guess_dt,
-                        adaptive_rtol=other.adaptive_rtol)
+                        adaptive_rtol=other.adaptive_rtol,
+                        taylor_order=other.taylor_config.order,
+                        rk_solver=other.rk_config.method)
 
 
 def mpo_from_numpy(model: Model, arrays, qn, qnidx: int, to_right: bool,

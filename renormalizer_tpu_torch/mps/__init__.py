@@ -1,4 +1,6 @@
-from renormalizer_tpu_torch.mps.mps import Mps
+from renormalizer_tpu_torch.mps.mps import Mps, BraKetPair
 from renormalizer_tpu_torch.mps.mpo import Mpo
+from renormalizer_tpu_torch.mps.mpdm import MpDm
+from renormalizer_tpu_torch.mps.thermalprop import ThermalProp, load_thermal_state
 from renormalizer_tpu_torch.mps.gs import optimize_mps
 from renormalizer_tpu_torch.mps.lib import compressed_sum

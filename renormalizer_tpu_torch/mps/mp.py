@@ -35,6 +35,11 @@ def to_numpy(mt: torch.Tensor) -> np.ndarray:
     return mt.detach().resolve_conj().cpu().numpy()
 
 
+def _double(mt: torch.Tensor) -> torch.Tensor:
+    """A site tensor in double precision (itself when it already is)."""
+    return mt.to(torch.complex128 if mt.is_complex() else torch.float64)
+
+
 def check_orthogonal(ms: torch.Tensor, left: bool, rtol=None, atol=None) -> bool:
     """Check left/right orthogonality of a site tensor."""
     rtol = rtol if rtol is not None else backend.canonical_rtol
@@ -131,6 +136,10 @@ class MatrixProduct:
         raise NotImplementedError
 
     @property
+    def is_mpdm(self):
+        raise NotImplementedError
+
+    @property
     def bond_dims(self) -> List:
         if not self.site_num:
             return []
@@ -146,9 +155,10 @@ class MatrixProduct:
 
     @property
     def bond_dims_exact(self) -> np.ndarray:
-        """The largest bond dimensions an exact representation can need."""
+        """The largest bond dimensions an exact representation can need
+        (an MPO or MpDm site has pbond^2 physical states)."""
         pbond = np.array(self.pbond_list, dtype=float)
-        if self.is_mpo:
+        if self.is_mpo or self.is_mpdm:
             pbond = pbond ** 2
         with np.errstate(over="ignore"):
             dims1 = [1] + list(np.cumprod(pbond))
@@ -442,7 +452,11 @@ class MatrixProduct:
     # --- algebra -----------------------------------------------------------------
     @property
     def mp_norm(self) -> float:
-        res = chain_overlap(list(self), list(self), conj_first=True).real
+        """The norm, from an overlap taken in double precision: the
+        adaptive RK's error estimate is the norm of a sum of stages that
+        cancel, as in :meth:`distance`."""
+        wide = [_double(mt) for mt in self]
+        res = chain_overlap(wide, wide, conj_first=True).real
         if res < 0:
             assert np.abs(res) < 1e-8
             res = 0
@@ -517,9 +531,18 @@ class MatrixProduct:
         return new_mp
 
     def distance(self, other) -> float:
-        l1 = self.conj().dot(self)
-        l2 = other.conj().dot(other)
-        l1dotl2 = self.conj().dot(other)
+        """||self - other|| from three overlaps, taken in double precision:
+        l1 + l2 - 2 Re l12 cancels, and in single precision its rounding
+        (~eps l1) is a distance of ~sqrt(eps) = 3e-4 of the norm, the size
+        of the errors that the adaptive steppers read from it (P&C's
+        order-(n-1) against order-n sum, TDVP's step doubling): on an H100
+        the adaptive P&C of ``chip_smoke.py`` phase 8(d) then took steps
+        with 3e-4 of error against its 5e-4 tolerance."""
+        a = [_double(mt) for mt in self]
+        b = [_double(mt) for mt in other]
+        l1 = chain_overlap(a, a, conj_first=True)
+        l2 = chain_overlap(b, b, conj_first=True)
+        l1dotl2 = chain_overlap(a, b, conj_first=True)
         d2 = (l1 + l2 - l1dotl2 - l1dotl2.conjugate()).real
         if d2 < 0:
             assert d2 / l1.real < 1e-8
@@ -596,6 +619,6 @@ class MatrixProduct:
         return "%s with %d sites" % (self.__class__, len(self))
 
     def __str__(self):
+        kind = "mps" if self.is_mps else "mpo" if self.is_mpo else "mpdm"
         return "{} current size: {}, Matrix product bond dim:{}".format(
-            "mps" if self.is_mps else "mpo", sizeof_fmt(self.total_bytes),
-            self.bond_dims)
+            kind, sizeof_fmt(self.total_bytes), self.bond_dims)

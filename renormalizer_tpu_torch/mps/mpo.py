@@ -1,8 +1,9 @@
 r"""Matrix product operators.
 
 Port of ``renormalizer_tpu/mps/mpo.py`` (reference
-``renormalizer/mps/mpo.py:28-494``): the constructor, ``onsite``,
-``identity``, ``apply``/``contract`` and ``todense``.  The symbolic compilation
+``renormalizer/mps/mpo.py:28-494``): the constructor, ``exact_propagator``,
+``onsite``, ``ph_onsite``, ``intersite``, ``identity``, ``apply``/``contract``
+and ``todense``.  The symbolic compilation
 runs on the host (``symbolic_mpo.py``); the numeric site tensors live on the
 backend device.
 """
@@ -12,10 +13,11 @@ from copy import deepcopy
 from typing import List, Union
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from renormalizer_tpu_torch.backend import backend, np_dtype
-from renormalizer_tpu_torch.model import Model, Op
+from renormalizer_tpu_torch.model import HolsteinModel, Model, Op
 from renormalizer_tpu_torch.mps.mp import MatrixProduct, to_numpy
 from renormalizer_tpu_torch.mps.svd_qn import add_outer
 from renormalizer_tpu_torch.mps.symbolic_mpo import (
@@ -79,6 +81,46 @@ class Mpo(MatrixProduct):
 
     # --- constructors ------------------------------------------------------
     @classmethod
+    def exact_propagator(cls, model: HolsteinModel, x, space="GS", shift=0.0):
+        r"""Bond-1 exact propagator e^{xH} of the local (phonon-only)
+        Hamiltonian of a Holstein model (reference ``mpo.py:33-101``).  In
+        the EX space each phonon's displaced pbond x pbond Hamiltonian is
+        diagonalized on the host."""
+        assert space in ("GS", "EX")
+        mpo = cls()
+        mpo.model = model
+        if np.iscomplex(x):
+            mpo.dtype = backend.complex_dtype
+        for mol in model:
+            if model.scheme < 4:
+                mpo.append(np.eye(2).reshape(1, 2, 2, 1))
+            elif model.scheme == 4:
+                if len(mpo) == model.order[0]:
+                    n = model.mol_num
+                    mpo.append(np.eye(n + 1).reshape(1, n + 1, n + 1, 1))
+            else:
+                raise AssertionError
+            for ph in mol.ph_list:
+                pbond = ph.pbond
+                if space == "GS":
+                    d = np.exp(x * ph.omega[0] * np.arange(pbond))
+                    mo = np.diag(d).reshape(1, pbond, pbond, 1)
+                else:
+                    h_mo = (
+                        np.diag(np.arange(pbond, dtype=float)) * ph.omega[0]
+                        + (np.diag(np.sqrt(np.arange(1, pbond)), -1)
+                           + np.diag(np.sqrt(np.arange(1, pbond)), 1)) * ph.term10
+                    )
+                    w, v = scipy.linalg.eigh(h_mo)
+                    mo = (v @ np.diag(np.exp(x * w)) @ v.T).reshape(1, pbond, pbond, 1)
+                mpo.append(mo)
+        mpo.qn = [np.zeros((1, model.qn_size), dtype=int)] * (len(mpo) + 1)
+        mpo.qnidx = len(mpo) - 1
+        mpo.qntot = np.zeros(model.qn_size, dtype=int)
+        # exp(shift * x) can be enormous; fold it into the chain
+        return mpo.scale(np.exp(shift * x), inplace=True)
+
+    @classmethod
     def onsite(cls, model: Model, opera, dipole=False, dof_set=None):
         """Sum of the one-site operator ``opera`` over ``dof_set`` (default:
         the electronic DoFs), optionally weighted by the dipoles."""
@@ -90,6 +132,22 @@ class Mpo(MatrixProduct):
             Op(opera, dof, model.dipole[dof] if dipole else 1.0) for dof in dof_set
         ]
         return cls(model, ops)
+
+    @classmethod
+    def ph_onsite(cls, model: HolsteinModel, opera: str, mol_idx: int, ph_idx=0):
+        assert opera in ("b", r"b^\dagger", r"b^\dagger b")
+        if not isinstance(model, HolsteinModel):
+            raise TypeError("ph_onsite only supports HolsteinModel")
+        return cls(model, Op(opera, (mol_idx, ph_idx)))
+
+    @classmethod
+    def intersite(cls, model: HolsteinModel, e_opera: dict, ph_opera: dict,
+                  scale: Quantity = Quantity(1.0)):
+        """Inter-site operator product, e.g. ``{1: "a", 3: r"a^\\dagger"}``
+        with phonon parts ``{(0, 5): "b"}`` (reference ``mpo.py:127-154``)."""
+        ops = [Op(o, k) for k, o in e_opera.items()]
+        ops += [Op(o, k) for k, o in ph_opera.items()]
+        return cls(model, scale.as_au() * Op.product(ops))
 
     @classmethod
     def identity(cls, model: Model):
@@ -113,6 +171,10 @@ class Mpo(MatrixProduct):
     def is_mpo(self):
         return True
 
+    @property
+    def is_mpdm(self):
+        return False
+
     def metacopy(self) -> "Mpo":
         new = super().metacopy()
         for attr in ("offset", "symbolic_out_ops_list", "primary_ops"):
@@ -131,8 +193,8 @@ class Mpo(MatrixProduct):
 
     # --- application ----------------------------------------------------------
     def apply(self, mp: MatrixProduct, canonicalise: bool = False) -> MatrixProduct:
-        """Exact ``mpo @ mps`` / ``mpo @ mpo`` with quantum-number outer sums
-        (reference ``mpo.py:331-389``)."""
+        """Exact ``mpo @ mps`` / ``mpo @ mpo`` / ``mpo @ mpdm`` with
+        quantum-number outer sums (reference ``mpo.py:331-389``)."""
         assert self.site_num == mp.site_num
         new_mps = self.promote_mt_type(mp.copy())
         dtype = new_mps.dtype
@@ -146,6 +208,7 @@ class Mpo(MatrixProduct):
                     (mt_o.shape[0] * mt_s.shape[0], mt_o.shape[1],
                      mt_o.shape[-1] * mt_s.shape[-1]))
             else:
+                # an MPO or an MpDm (whose ancilla leg is the "down" one):
                 # (ol, up, or, sl, down, sr) -> (ol, sl, up, down, or, sr)
                 mt = torch.movedim(mt, (-3, -2), (1, 3))
                 new_mps[i] = mt.reshape(

@@ -2,13 +2,15 @@ r"""Matrix product states: construction, measurement and time evolution.
 
 Port of ``renormalizer_tpu/mps/mps.py`` (reference
 ``renormalizer/mps/mps.py:118-2169``): the constructors, normalization,
-measurements, bond-dimension expansion and the one-site projector-splitting
-TDVP (``EvolveMethod.tdvp_ps``, PhysRevB.94.165116).  The other evolution
-schemes are not ported yet; :meth:`Mps.evolve` names them and raises.
+measurements, bond-dimension expansion, the one-site projector-splitting
+TDVP (``EvolveMethod.tdvp_ps``, PhysRevB.94.165116), the propagate-and-compress
+family (Taylor, RK4 and Butcher-tableau RK, fixed or adaptive), the exact
+local propagation and ``BraKetPair``.  TDVP-PS2, VMF and CMF are not ported
+yet; :meth:`Mps.evolve` names them and raises.
 """
 
 import logging
-from functools import wraps
+from functools import reduce, wraps
 from typing import Dict, Union
 
 import numpy as np
@@ -30,6 +32,7 @@ from renormalizer_tpu_torch.ops.contract import (
     tensordot1,
 )
 from renormalizer_tpu_torch.utils import (
+    CompressCriteria,
     EvolveConfig,
     EvolveMethod,
     OptimizeConfig,
@@ -301,6 +304,10 @@ class Mps(MatrixProduct):
         return False
 
     @property
+    def is_mpdm(self):
+        return False
+
+    @property
     def norm(self):
         """Norm of the total wavefunction including ``coeff``."""
         return np.linalg.norm(self.coeff) * self.mp_norm
@@ -341,6 +348,11 @@ class Mps(MatrixProduct):
         return expand_bond_dimension(self, hint_mpo, coef, include_ex)
 
     # --- measurement -----------------------------------------------------------
+    def _expectation_path(self):
+        # environments are (bra, mpo, ket)-ordered; operands are
+        # (l, ket_site, mpo_site, bra_site, r)
+        return "abc,cfh,bdfg,ade,egh->"
+
     def expectation(self, mpo, self_conj: "Mps" = None) -> Union[float, complex]:
         r"""<self_conj| mpo |self> (reference ``mps.py:471-525``)."""
         if isinstance(mpo, (Op, OpSum)):
@@ -351,8 +363,7 @@ class Mps(MatrixProduct):
             self_conj = self.conj()
         environ = Environ(self, mpo, "R", mps_conj=self_conj)
         r = environ.read("R", 1)
-        # operands are (l, ket_site, mpo_site, bra_site, r)
-        val = complex(einsum("abc,cfh,bdfg,ade,egh->", environ.sentinel, self[0],
+        val = complex(einsum(self._expectation_path(), environ.sentinel, self[0],
                              mpo[0], self_conj[0], r).item())
         if np.isclose(val.imag, 0):
             return val.real
@@ -449,15 +460,166 @@ class Mps(MatrixProduct):
     # --- evolution ------------------------------------------------------------
     def evolve(self, mpo, evolve_dt, normalize=True) -> "Mps":
         method = self.evolve_config.method
-        if method is not EvolveMethod.tdvp_ps:
+        evolve = {
+            EvolveMethod.prop_and_compress: self._evolve_prop_and_compress,
+            EvolveMethod.prop_and_compress_tdrk4: self._evolve_prop_and_compress_tdrk4,
+            EvolveMethod.prop_and_compress_tdrk: self._evolve_prop_and_compress_tdrk,
+            EvolveMethod.tdvp_ps: self._evolve_tdvp_ps,
+        }.get(method)
+        if evolve is None:
             raise NotImplementedError(
                 f"evolution method {method} ({method.value}) is not ported yet")
-        new_mps = self._evolve_tdvp_ps(mpo, evolve_dt)
+        new_mps = evolve(mpo, evolve_dt)
         if normalize:
             if np.iscomplex(evolve_dt):
                 new_mps.normalize("mps_and_coeff")
             else:
                 new_mps.normalize("mps_only")
+        return new_mps
+
+    def _evolve_prop_and_compress(self, mpo, evolve_dt) -> "Mps":
+        """Taylor propagator with compressed sums, fixed or adaptive step
+        (reference ``mps.py:794-885``)."""
+        if self.is_complex:
+            mpo = _complex_mpo_twin(mpo)
+        config = self.evolve_config
+        assert evolve_dt is not None
+        propagation_c = config.taylor_config.coeff
+        order = len(propagation_c) - 1
+        termlist = [self]
+        # don't let the bond dimension grow during the H^n |psi> ladder
+        orig_compress_config = self.compress_config
+        contract_compress_config = self.compress_config.copy()
+        if contract_compress_config.criteria is CompressCriteria.threshold:
+            contract_compress_config.criteria = CompressCriteria.both
+        self.compress_config = contract_compress_config
+        while len(termlist) < len(propagation_c):
+            termlist.append(mpo.contract(termlist[-1]))
+        for t in termlist:
+            t.compress_config = orig_compress_config
+
+        if config.adaptive:
+            config.check_valid_dt(evolve_dt)
+            p_restart, p_min, p_max = 0.5, 0.1, 2.0
+            while True:
+                dt = min_abs(config.guess_dt, evolve_dt)
+                logger.debug(f"guess_dt: {config.guess_dt}, try time step size: {dt}")
+                scaled = [
+                    term.scale((-1.0j * dt) ** idx * propagation_c[idx])
+                    for idx, term in enumerate(termlist)
+                ]
+                new_mps1 = compressed_sum(scaled[:-1])
+                new_mps2 = compressed_sum([new_mps1, scaled[-1]])
+                dis = new_mps1.distance(new_mps2)
+                p = (config.adaptive_rtol / (dis / new_mps2.mp_norm + 1e-30)) ** (1 / order)
+                logger.debug(f"Taylor error distance: {dis}, enlarge p parameter: {p}")
+                if np.allclose(dt, evolve_dt):
+                    if p < p_restart:
+                        config.guess_dt = dt * max(p_min, p)
+                        continue
+                    new_mps2.evolve_config.guess_dt = min_abs(dt * p, config.guess_dt)
+                    return new_mps2
+                if p < p_restart:
+                    config.guess_dt *= max(p_min, p)
+                    continue
+                new_dt = evolve_dt - dt
+                config.guess_dt *= min(p, p_max)
+                new_mps2.evolve_config.guess_dt = config.guess_dt
+                logger.debug(f"sub-step {dt} further, remaining: {new_dt}")
+                return new_mps2._evolve_prop_and_compress(mpo, new_dt)
+
+        for idx, term in enumerate(termlist):
+            term.scale((-1.0j * evolve_dt) ** idx * propagation_c[idx], inplace=True)
+        return compressed_sum(termlist)
+
+    def _evolve_prop_and_compress_tdrk4(self, mpo, evolve_dt) -> "Mps":
+        """Classical RK4 for a (possibly) time-dependent H
+        (reference ``mps.py:664-699``)."""
+        if self.is_complex:
+            mpo = _complex_mpo_twin(mpo)
+        mpo_t = _normalize_mpo_t(mpo)
+        k1 = mpo_t(0).contract(self).scale(-1j)
+        tmp = self + k1.scale(0.5 * evolve_dt)
+        tmp.canonicalise().compress()
+        k2 = mpo_t(0.5 * evolve_dt).contract(tmp).scale(-1j)
+        tmp = self + k2.scale(0.5 * evolve_dt)
+        tmp.canonicalise().compress()
+        k3 = mpo_t(0.5 * evolve_dt).contract(tmp).scale(-1j)
+        tmp = self + k3.scale(evolve_dt)
+        tmp.canonicalise().compress()
+        k4 = mpo_t(evolve_dt).contract(tmp).scale(-1j)
+        return compressed_sum([
+            self,
+            k1.scale(evolve_dt / 6), k2.scale(evolve_dt / 3),
+            k3.scale(evolve_dt / 3), k4.scale(evolve_dt / 6),
+        ])
+
+    def _evolve_prop_and_compress_tdrk(self, mpo, evolve_dt) -> "Mps":
+        """General explicit RK with a Butcher tableau, adaptive (embedded
+        pair) or fixed step (reference ``mps.py:701-792``)."""
+        if self.is_complex:
+            mpo = _complex_mpo_twin(mpo)
+        mpo_t = _normalize_mpo_t(mpo)
+        rk = self.evolve_config.rk_config
+        a, b, c = rk.tableau
+
+        def sub_step(y, tau, t0):
+            k_list = []
+            for istage in range(rk.stage):
+                k = compressed_sum(
+                    [y] + [k_list[i].scale(a[istage, i] * tau)
+                           for i in range(istage) if a[istage, i] != 0],
+                    batchsize=6)
+                k = mpo_t(c[istage] * tau + t0, mps=k).contract(k).scale(-1j)
+                k_list.append(k)
+            new_mps = compressed_sum(
+                [y] + [k_list[i].scale(b[0, i] * tau)
+                       for i in range(rk.stage) if b[0, i] != 0],
+                batchsize=6)
+            if self.evolve_config.adaptive:
+                assert len(rk.order) == 2 and rk.order[0] - rk.order[1] == 1
+                err_mps = reduce(
+                    lambda m1, m2: m1.add(m2),
+                    [k_list[i].scale((b[0, i] - b[1, i]) * tau)
+                     for i in range(rk.stage) if not np.allclose(b[0, i], b[1, i])])
+                error = err_mps.norm / new_mps.norm
+            else:
+                assert len(rk.order) == 1
+                error = 0
+            return new_mps, error
+
+        self.evolve_config.check_valid_dt(evolve_dt)
+        if not self.evolve_config.adaptive:
+            new_mps, _ = sub_step(self, evolve_dt, 0)
+            return new_mps
+
+        p_restart, p_min, p_max = 0.5, 0.1, 2.0
+        evolved = 0
+        new_mps = self
+        while True:
+            dt = min_abs(new_mps.evolve_config.guess_dt, evolve_dt - evolved)
+            new_mps2, error = sub_step(new_mps, dt, evolved)
+            p = (new_mps.evolve_config.adaptive_rtol / (error + 1e-30)) ** (1 / rk.order[0])
+            logger.debug(f"RK {rk.method} error: {error}, p: {p}")
+            if p < p_restart:
+                new_mps.evolve_config.guess_dt = dt * max(p_min, p)
+                continue
+            new_mps = new_mps2
+            if np.allclose(dt + evolved, evolve_dt):
+                new_mps.evolve_config.guess_dt = min_abs(
+                    dt * p, new_mps.evolve_config.guess_dt)
+                return new_mps
+            new_mps.evolve_config.guess_dt = new_mps.evolve_config.guess_dt * min(p, p_max)
+            evolved += dt
+
+    def evolve_exact(self, h_mpo, evolve_dt, space, shift=0.0):
+        """Exact local propagation within the GS/EX space
+        (reference ``mps.py:1519-1523``); ``shift`` adds a constant to the
+        local Hamiltonian, i.e. propagates with ``exp(-i (H + shift) t)``."""
+        MPOprop = Mpo.exact_propagator(
+            self.model, -1j * evolve_dt, space, shift - h_mpo.offset)
+        new_mps = MPOprop.apply(self, canonicalise=True)
+        new_mps.coeff = self.coeff * np.exp(-1j * h_mpo.offset * evolve_dt)
         return new_mps
 
     @adaptive_tdvp
@@ -466,7 +628,9 @@ class Mps(MatrixProduct):
         reference ``mps.py:1267-1404``): two half-sweeps of site visits, each
         a forward Lanczos expm of the site, a QR split, and a backward
         Lanczos expm of the bond.  Real time makes the state complex;
-        imaginary time (complex ``evolve_dt``) keeps a real state real."""
+        imaginary time (complex ``evolve_dt``) keeps a real state real.  An
+        MpDm's 4-leg sites take the unfused visit (the fused one contracts
+        3-leg sites), as in the JAX package."""
         if np.iscomplex(evolve_dt):
             mps = self.copy()
         else:
@@ -485,7 +649,7 @@ class Mps(MatrixProduct):
                 m = int(np.prod(qnbigl.shape[:-1]))
                 n = int(np.prod(qnbigr.shape[:-1]))
                 k = min(m, n)
-                use_fused = has_backward
+                use_fused = has_backward and mps[imps].ndim == 3
                 sec = _trivial_sector(qnbigl, qnbigr, mps.qntot) if use_fused else None
                 if use_fused and sec is None:
                     # qn-structured sites go fused as long as the kept axis
@@ -585,10 +749,14 @@ def expand_bond_dimension(mps, hint_mpo=None, coef=1e-10, include_ex=True):
     powers of a hint MPO (reference ``mps.py:1934-1960``)."""
     if hint_mpo is not None and include_ex:
         logger.debug(f"average bond dimension of hint mpo: {hint_mpo.bond_dims_mean}")
-        ex_state = mps.ground_state(mps.model, False)
-        assert mps.model.qn_size == 1
-        for _ in range(int(mps.qntot[0])):
-            ex_state = Mpo.onsite(mps.model, r"a^\dagger") @ ex_state
+        if mps.is_mpdm:
+            assert mps.qntot == 1
+            ex_state = mps.max_entangled_ex(mps.model)
+        else:
+            ex_state = mps.ground_state(mps.model, False)
+            assert mps.model.qn_size == 1
+            for _ in range(int(mps.qntot[0])):
+                ex_state = Mpo.onsite(mps.model, r"a^\dagger") @ ex_state
         ex_state.compress_config = mps.compress_config
         ex_state.move_qnidx(mps.qnidx)
         ex_state.to_right = mps.to_right
@@ -638,6 +806,41 @@ def expand_bond_dimension_general(mps, hint_mpo=None, coef=1e-10, ex_mps=None):
         .compress(mps.compress_config.max_dims)
         .normalize("mps_norm_to_coeff")
     )
+
+
+def _normalize_mpo_t(mpo):
+    """Uniform interface for time-dependent Hamiltonians: ``mpo_t(t)``."""
+    if isinstance(mpo, Mpo):
+        return lambda t, *args, **kwargs: mpo
+    if callable(mpo):
+        return mpo
+    raise TypeError(f"unsupported mpo type: {mpo}")
+
+
+class BraKetPair:
+    """A bra/ket pair with its transition amplitude ``ft``
+    (reference ``mps.py:2061-2088``)."""
+
+    def __init__(self, bra_mps, ket_mps, mpo=None):
+        self.bra_mps = bra_mps
+        self.ket_mps = ket_mps
+        self.mpo = mpo
+        self.ft = self.calc_ft()
+
+    def calc_ft(self):
+        if self.mpo is None:
+            dot = self.bra_mps.conj().dot(self.ket_mps)
+        else:
+            dot = self.ket_mps.expectation(self.mpo, self.bra_mps.conj())
+        return complex(dot * np.conjugate(self.bra_mps.coeff) * self.ket_mps.coeff)
+
+    def __str__(self):
+        sign = "+" if 0 <= self.ft.imag else ""
+        ft_str = "%g%s%gj" % (self.ft.real, sign, self.ft.imag)
+        return "bra: %s, ket: %s, ft: %s" % (self.bra_mps, self.ket_mps, ft_str)
+
+    def __iter__(self):
+        return iter((self.bra_mps, self.ket_mps))
 
 
 def min_abs(t1, t2):

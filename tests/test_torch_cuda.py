@@ -53,3 +53,35 @@ def test_jacobi_kernel_matches_plain(cuda, batch, n, dtype, eig, orth):
     assert float((w - w_p).abs().max()) < 2 * eig * norm
     eye = torch.eye(n, dtype=dtype, device=cuda)
     assert float((v.mT @ v - eye).abs().max()) < orth
+
+
+@pytest.mark.cuda
+def test_thermal_prop_reaches_the_kernel(cuda, monkeypatch):
+    """ThermalProp of chip_smoke.py's phase 8(a) (3 molecules, one 3-level
+    phonon each, 1500 K, beta/2 in 20 TDVP-PS steps) on the card and on the
+    CPU, both in fp32: the same occupations, and the card's run launched the
+    Jacobi kernel (the bond-entropy compress of every step solves real
+    Grams)."""
+    from renormalizer_tpu_torch import (
+        EvolveConfig, EvolveMethod, HolsteinModel, MpDm, Mol, Phonon, Quantity,
+        ThermalProp)
+    from renormalizer_tpu_torch.backend import backend
+
+    def occupations():
+        ph = Phonon.simple_phonon(Quantity(1.0), Quantity(0.6), 3)
+        model = HolsteinModel([Mol(Quantity(0.0), [ph], 1.0)] * 3, Quantity(0.1))
+        tp = ThermalProp(MpDm.max_entangled_ex(model),
+                         evolve_config=EvolveConfig(EvolveMethod.tdvp_ps))
+        tp.evolve(None, 20, Quantity(1500.0, "K").to_beta() / 2j)
+        assert tp.latest_mps[0].device.type == backend.device.type
+        return tp.e_occupations_array[-1]
+
+    assert backend.device.type == "cuda" and backend.is_32bits
+    before = jacobi_eigh.launches
+    on_card = occupations()
+    launches = jacobi_eigh.launches - before
+    monkeypatch.setattr(backend, "device", torch.device("cpu"))
+    on_cpu = occupations()
+    assert launches > 0
+    # both fp32; the CPU run is 4.6e-7 off the dense populations
+    np.testing.assert_allclose(on_card, on_cpu, atol=1e-5)

@@ -16,6 +16,8 @@ from fixtures import dense_hamiltonian, exact_model
 import renormalizer_tpu as rj
 from renormalizer_tpu.model import Model as JaxModel
 from renormalizer_tpu_torch import (
+    CompressConfig,
+    CompressCriteria,
     EvolveConfig,
     EvolveMethod,
     HolsteinModel,
@@ -187,7 +189,16 @@ def test_imaginary_time_stays_real_and_cools():
                                     if m is not EvolveMethod.tdvp_ps],
                          ids=lambda m: m.name)
 def test_unported_methods_raise(method):
+    """Every method but TDVP-PS: the P&C family is ported now and evolves
+    (``tests/test_torch_pc.py`` holds it against dense oracles and the JAX
+    package); the others still raise, naming themselves."""
     mps = port_init()
     mps.evolve_config = EvolveConfig(method)
-    with pytest.raises(NotImplementedError, match=method.name):
-        mps.evolve(MPO, DT)
+    if not method.value.startswith("P&C"):
+        with pytest.raises(NotImplementedError, match=method.name):
+            mps.evolve(MPO, DT)
+        return
+    mps.compress_config = CompressConfig(CompressCriteria.fixed)
+    out = mps.evolve(MPO, DT)
+    assert out.is_complex
+    assert out.mp_norm == pytest.approx(1.0, abs=1e-12)
