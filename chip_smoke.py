@@ -13,11 +13,11 @@ Phases (any failure exits non-zero):
      torch.linalg.eigh (tolerances relative to ||A||_F: eigenvalues 1e-5 f32
      / 1e-11 f64, |V^T V - I| 1e-4 / 1e-12, |AV - VL| 1e-4 / 1e-11, up to
      n = 288; past n = 288 the f32 tolerances grow as n / 288), the ten
-     (1, n, n) shapes that phase 6(d) solves among them; then, at the DMRG
-     path's shapes (2, 288, 288) and (1, 544, 544) and the evolution path's
-     (1, 48, 48), f32, the kernel, the plain version and torch.linalg.eigh
-     timed in turns, the sweeps each timed solve took, and the kernel's
-     bound;
+     (1, n, n) shapes that phases 6(d), 9 and 10 solve among them; then, at
+     the DMRG path's shapes (2, 288, 288) and (1, 544, 544), the evolution
+     path's (1, 48, 48) and the Kubo path's (1, n, n), n = 106, 8, 2, 25, f32,
+     the kernel, the plain version and torch.linalg.eigh timed in turns, the
+     sweeps each timed solve took, and the kernel's bound;
   4. main path: 2-site DMRG of the 6-molecule Holstein chain (18 sites) at
      M=256 in fp32, through Mps.random / Mpo / optimize_mps; the energy must be
      within 1e-6 of 0.11503887 and the truncation's Gram eigh must have gone
@@ -62,10 +62,33 @@ Phases (any failure exits non-zero):
      Jacobi launches are recorded as in 6(d): none at the sweep cap, none of
      a shape that phase 3 did not hold (KUBO_PATH_GRAMS), every one solved
      again by torch.linalg.eigh inside phase 3's f32 tolerances.
+ 10. the rest of Mps.evolve and its jobs: (a) against dense oracles on the
+     JAX package's test models: TDVP-PS2, MU-VMF, VMF and MU-CMF on the
+     3-molecule, 2-level chain (occupations within 1e-4, MU-CMF 5e-4, mean
+     cumulative deviation; RKF45 nfev/nsteps per step printed),
+     SpectralFunctionZT on the 4-cell TI1DModel ring (G(0) within 1e-5 of
+     -i delta_ij) and the band-limit ChargeDiffusionDynamics (r^2 within
+     1e-3 of 2 J^2 t^2); at full width on the bench chain (18 sites, fixed
+     M=64, one first and three timed steps) (b) ChargeDiffusionDynamics at
+     T=0 from the relaxed start with MU-VMF, dt 1 a.u. (a step of 20 a.u.
+     takes ~4500 right-hand sides, ~13 minutes, on the H100), and (c) with
+     TDVP-PS2, dt 20 a.u.: norm within NORM_TOL, occupations summing to 1 within
+     1e-4, r^2 finite and >= 0, <H> within CHARGE_ENERGY_DRIFT max(1, |E|)
+     of its start; the constructors' Jacobi launches recorded as in phase 9
+     (CHARGE_PATH_GRAMS); (d) ThermalProp of the chain's MpDm at 298 K with
+     MU-VMF in imaginary time and a Property collector (e_rdm and
+     e_ph_static_correlation): two TDVP-PS steps of beta/20 (from the freshly
+     expanded state MU-VMF stalls: its RKF45 step fell to ~1e-7 a.u. within
+     0.015 a.u.), then one first and two timed MU-VMF steps of beta/100: the
+     Jacobi kernel inside the time loop, every launch recorded (none at the
+     sweep cap, every shape in THERMAL_PATH_GRAMS, every Gram solved again by
+     torch.linalg.eigh inside phase 3's f32 tolerances), launches per step
+     printed.
 A [summary] line repeats the run's times as JSON, so that the end of the
-output carries them.  The line before the last holds the kernel record as
+output carries them, with the seconds of each phase and of the whole script.  The line before the last holds the kernel record as
 JSON (with the launches of each path: DMRG, SpinBosonDynamics,
-TransportKubo); the last line is
+TransportKubo, ChargeDiffusionDynamics, the MU-VMF ThermalProp); the last
+line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
 
@@ -73,9 +96,9 @@ no result.
 
 runs the DMRG main path under torch.profiler and adds its device time per
 kernel and the card's busy share of that run's wall time; then (phase 7) it
-does the same for one more step of each of 6(a)-(d) and of the Kubo job of
-phase 9, and counts that step's host synchronisations by the operator that
-asked for them.
+does the same for one more step of each of 6(a)-(d), of the Kubo job of
+phase 9 and of 10(b)-(d), and counts that step's host synchronisations by
+the operator that asked for them.
 """
 
 import collections
@@ -85,6 +108,7 @@ import subprocess
 import sys
 import time
 
+_T0 = time.perf_counter()
 E_REF = 0.11503887      # converged bench energy, M=256, fp32
 E_TOL = 1e-6
 M = 256
@@ -105,13 +129,32 @@ NORM_TOL = 1e-4
 # version at each, and 6(d) fails if it solves a shape that is not listed
 EVOLVE_PATH_GRAMS = (2, 3, 8, 9, 12, 27, 32, 39, 48, 75)
 # n of the (1, n, n) f32 Grams that the TransportKubo constructor of phase 9
-# solves (the bench chain, M=64); phase 3 holds the kernel against its plain
-# version at each n <= 288 and at the largest, and phase 9 fails on a shape
-# that is not listed
-KUBO_PATH_GRAMS = (2, 6, 8, 10, 14, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27,
-                   28, 29, 30, 31, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43,
-                   44, 49, 50, 51, 52, 54, 55, 58, 64, 71, 78, 82, 84, 91, 92,
-                   95, 97, 100, 101, 103, 106)
+# solves (the bench chain, M=64: 52 n before the expansion spread its
+# zero-weight padding over the sectors, and the seven more it solves since);
+# phase 3 holds the kernel against its plain version at each n <= 288 and at
+# the largest, and phase 9 fails on a shape that is not listed
+KUBO_PATH_GRAMS = (2, 6, 8, 10, 14, 16, 18, 19, 20, 21, 22, 23, 24, 25, 26,
+                   27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41,
+                   42, 43, 44, 49, 50, 51, 52, 54, 55, 58, 64, 71, 78, 80, 82,
+                   84, 86, 90, 91, 92, 95, 96, 97, 98, 100, 101, 102, 103, 106)
+# n of the (1, n, n) f32 Grams that the ChargeDiffusionDynamics constructors
+# of phase 10(b)-(c) solve (the bench chain, M=64: the expansion), and of the
+# Grams of phase 10(d)'s ThermalProp, by itemsize: f32 in its constructor
+# (the expansion), f64 in the time steps (MU-VMF integrates in double
+# precision); phase 3 holds the kernel against its plain version at each, and
+# phase 10 fails on a shape that is not listed
+CHARGE_PATH_GRAMS = (1, 4, 5, 6, 7, 13, 14, 17, 18, 19, 20, 21, 22, 23, 24, 25,
+                     26, 27, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 41, 42,
+                     44, 45, 46, 47, 49, 50, 52, 54, 56, 57)
+THERMAL_PATH_GRAMS = {4: (2, 6, 8, 14, 16, 18, 19, 20, 21, 23, 24, 25, 26, 27, 29,
+                         30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 43, 44,
+                         51, 52, 58, 64, 71),
+                      8: (2, 26, 27, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 64)}
+# <H> drift allowed in phase 10(b)-(c), relative to max(1, |E|): a CPU fp32
+# rehearsal (3 molecules, M=16, three steps of 20 a.u.) drifts by 2.0e-8 with
+# MU-VMF and 3.3e-8 with TDVP-PS2; the bound of phase 6 leaves a factor of
+# 1500 over that for the full width
+CHARGE_ENERGY_DRIFT = 5e-5
 # phase 8(a)'s imaginary-time steps to beta/2, and 8(c)'s bound on
 # |C - C_dense| / |C(0)|
 THERMAL_STEPS = 20
@@ -262,6 +305,13 @@ def phase_kernels():
     kubo_n = sorted(({n for n in KUBO_PATH_GRAMS if n <= 288}
                      | set(sorted(KUBO_PATH_GRAMS)[-1:])) - set(EVOLVE_PATH_GRAMS))
     cases += [((1, n, n), torch.float32, 7000 + n) for n in kubo_n]
+    # and the n of phase 10's paths that no earlier case holds, f32 and f64
+    held = set(EVOLVE_PATH_GRAMS) | set(kubo_n)
+    for size, dt in ((4, torch.float32), (8, torch.float64)):
+        new = sorted(set(CHARGE_PATH_GRAMS if size == 4 else ())
+                     | set(THERMAL_PATH_GRAMS[size]))
+        cases += [((1, n, n), dt, 8000 + n) for n in new
+                  if size == 8 or n not in held]
     main_err = None
     for shape, dt, seed in cases:
         a = _symmetric(rng if seed is None else np.random.default_rng(seed),
@@ -310,9 +360,11 @@ def phase_kernels():
 
     timed = {}
     cap = default_sweeps(torch.float32) + MAX_EXTRA_SWEEPS
-    # the DMRG path's two widest shapes, and the evolution path's most
-    # frequent one (78 of the 403 launches of phase 6(d))
-    for shape in ((2, 288, 288), (1, 544, 544), (1, 48, 48)):
+    # the DMRG path's two widest shapes, the evolution path's most frequent
+    # one (78 of the 403 launches of phase 6(d)), and the Kubo path's widest
+    # (106) and three most frequent (8, 2, 25) of phase 9
+    for shape in ((2, 288, 288), (1, 544, 544), (1, 48, 48), (1, 106, 106),
+                  (1, 8, 8), (1, 2, 2), (1, 25, 25)):
         # the first timed input is drawn after the clustered case, as in
         # earlier runs; the others from their own seeds
         a = _symmetric(rng if shape[-1] == 288
@@ -345,6 +397,11 @@ class GramRecord:
 
     def __init__(self, keep_grams=False):
         self.grams, self.kept, self.keep_grams = [], {}, keep_grams
+        self.itemsizes = []
+
+    def shapes(self):
+        """The (batch, n, itemsize) of every launch."""
+        return [(b, n, size) for (b, n, _, _), size in zip(self.grams, self.itemsizes)]
 
     def __call__(self, g, *args, **kwargs):
         from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
@@ -354,9 +411,10 @@ class GramRecord:
         w, v, resid, nsweeps = jacobi_eigh(g, *args, return_resid=True,
                                            return_sweeps=True, **kwargs)
         self.grams.append(key + (resid.reshape(-1), nsweeps.reshape(-1)))
+        self.itemsizes.append(g.element_size())
         if self.keep_grams:
             n = key[1]
-            self.kept.setdefault(n, []).append(
+            self.kept.setdefault((n, g.element_size()), []).append(
                 (copy.reshape(-1, n, n), w.reshape(-1, n), v.reshape(-1, n, n)))
         return w, v
 
@@ -374,6 +432,9 @@ class GramRecord:
                      if self.grams else 0.0)
         at_cap = sum(max(s) >= cap for s in sweeps)
         hist = collections.Counter((b, n) for b, n, _, _ in self.grams)
+        if len(set(self.itemsizes)) > 1:
+            hist = collections.Counter(
+                (b, n, f"f{8 * size}") for b, n, size in self.shapes())
         sweep_hist = collections.Counter(x for s in sweeps for x in s)
         print(f"{tag} Gram eigh launches at the sweep cap ({cap}): {at_cap} of "
               f"{len(self.grams)}; sweeps per solve "
@@ -396,7 +457,7 @@ class GramRecord:
         from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh_reference
 
         worst, count = 0.0, 0
-        for n, kept in sorted(self.kept.items()):
+        for (n, _), kept in sorted(self.kept.items()):
             g, w, v = (torch.cat(parts) for parts in zip(*kept))
             w_p, v_p = jacobi_eigh_reference(g)
             _check_eigh(f"{tag} n={n} kernel", _eigh_errors(g, w, v), tol)
@@ -418,7 +479,7 @@ class GramRecord:
         import torch
 
         worst, count = [0.0, 0.0, 0.0], 0
-        for n, kept in sorted(self.kept.items()):
+        for (n, _), kept in sorted(self.kept.items()):
             g, w, v = (torch.cat(parts) for parts in zip(*kept))
             grow = max(1.0, n / 288)
             errs = _eigh_errors(g, w, v)
@@ -1019,6 +1080,280 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
     return launches, thermal_seconds, seconds[1:]
 
 
+def _ivp_delta(before):
+    from renormalizer_tpu_torch.lib import solvers
+
+    return {k: solvers.IVP_COUNTS[k] - before[k] for k in ("nfev", "nsteps")}
+
+
+def phase_vmf_oracles():
+    """Phase 10(a): the methods and jobs of this phase on small models against
+    dense oracles, with the JAX package's own tests' bounds."""
+    import numpy as np
+    import scipy.linalg
+
+    from renormalizer_tpu_torch import (
+        CompressConfig, EvolveConfig, EvolveMethod, HolsteinModel, Mol, Mpo,
+        Mps, Op, Phonon, Quantity, TI1DModel)
+    from renormalizer_tpu_torch.lib import solvers
+    from renormalizer_tpu_torch.model import BasisSimpleElectron
+    from renormalizer_tpu_torch.transport import (
+        EDGE_THRESHOLD, ChargeDiffusionDynamics, SpectralFunctionZT)
+
+    # tests/test_evolve.py: the 3-molecule, 2-level chain from a^dagger_0 |gs>
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
+    init = Mpo.onsite(model, r"a^\dagger", dof_set=[0]) @ Mps.ground_state(model, False)
+    init = init.expand_bond_dimension(hint_mpo=Mpo(model))
+    e0 = init.expectation(Mpo(model))
+    mpo = Mpo(model, offset=Quantity(e0))
+    h = dense_operator(model, model.ham_terms) - e0 * np.eye(2 ** 6)
+    occ_ops = [dense_operator(model, [Op(r"a^\dagger a", dof)]) for dof in model.e_dofs]
+    psi0 = init.todense().astype(complex)
+    vmf = dict(ivp_rtol=1e-4, ivp_atol=1e-7, force_ovlp=False)
+    for tag, method, kwargs, cc, dt, nsteps, bound in (
+            ("TDVP-PS2", EvolveMethod.tdvp_ps2, {}, CompressConfig(threshold=1e-6),
+             0.2, 10, 1e-4),
+            ("MU-VMF", EvolveMethod.tdvp_mu_vmf, vmf, None, 1.0, 1, 1e-4),
+            ("VMF", EvolveMethod.tdvp_vmf, vmf, None, 1.0, 1, 1e-4),
+            ("MU-CMF", EvolveMethod.tdvp_mu_cmf, {}, None, 0.02, 3, 5e-4)):
+        mps = init.copy()
+        mps.evolve_config = EvolveConfig(method, **kwargs)
+        mps.evolve_config.vmf_auto_switch = False
+        if cc is not None:
+            mps.compress_config = cc
+        deviations, ivp = [], []
+        t0 = time.perf_counter()
+        for i in range(1, nsteps + 1):
+            before = dict(solvers.IVP_COUNTS)
+            mps = mps.evolve(mpo, dt)
+            ivp.append(_ivp_delta(before))
+            psi = scipy.linalg.expm(-1j * h * dt * i) @ psi0
+            dense = [np.real(psi.conj() @ o @ psi) for o in occ_ops]
+            deviations.append(float(np.abs(mps.e_occupations - dense).mean()))
+        mcd = float(np.mean(deviations))
+        counts = ("" if not ivp[0]["nfev"] else
+                  f"; RKF45 nfev/nsteps per step {[(c['nfev'], c['nsteps']) for c in ivp]}")
+        print(f"[vmf a] {tag}: {nsteps} steps of {dt} in {time.perf_counter() - t0:.2f} s, "
+              f"e_occupations mean cumulative deviation {mcd:.3e} (bound {bound:.0e}), "
+              f"norm {mps.mp_norm:.7f}, bond dims {mps.bond_dims}{counts}", flush=True)
+        check(_all_finite(mps), f"[vmf a] {tag}: non-finite MPS")
+        check(abs(mps.mp_norm - 1) < 1e-5, f"[vmf a] {tag}: norm {mps.mp_norm}")
+        check(mcd < bound, f"[vmf a] {tag}: deviation {mcd}")
+
+    # tests/test_apps.py:266-282: G(0) of the free-electron 4-cell ring
+    hop = (Op(r"a^\dagger a", [(0, "e"), (1, "e")], -1.0)
+           + Op(r"a^\dagger a", [(1, "e"), (0, "e")], -1.0))
+    ring = TI1DModel([BasisSimpleElectron("e")], [], hop, 4)
+    job = SpectralFunctionZT(ring)
+    job.evolve(0.1, 2)
+    g0 = job.G_array[0]
+    dev = max(abs(g0[0] * 1j - 1), float(np.abs(g0[1:]).max()))
+    print(f"[vmf a] SpectralFunctionZT 4-cell ring: G(0) {np.round(g0, 7).tolist()}, "
+          f"largest deviation from -i delta_ij {dev:.3e} (bound 1e-5)", flush=True)
+    check(np.isfinite(job.G_array).all() and dev < 1e-5,
+          f"[vmf a] SpectralFunctionZT G(0) off by {dev}")
+
+    # tests/test_apps.py:467-484: band-limit charge diffusion, r^2 = 2 J^2 t^2
+    ph_list = [Phonon.simple_phonon(Quantity(1e-10, "cm-1"), Quantity(1e-10, "a.u."), 4)]
+    j_constant = Quantity(0.8, "eV")
+    chain = HolsteinModel([Mol(Quantity(0), ph_list)] * 13, j_constant, 3)
+    t0 = time.perf_counter()
+    ct = ChargeDiffusionDynamics(chain, evolve_config=EvolveConfig(EvolveMethod.prop_and_compress))
+    ct.evolve(4, 25)
+    analytical = 2 * j_constant.as_au() ** 2 * ct.evolve_times_array ** 2
+    mask = analytical > 0
+    rel = np.abs(np.asarray(ct.r_square_array)[mask] / analytical[mask] - 1)
+    edge = ct.latest_mps.e_occupations[0]
+    print(f"[vmf a] ChargeDiffusionDynamics band limit, 13 molecules: {len(ct.evolve_times) - 1} "
+          f"P&C steps of 4 a.u. in {time.perf_counter() - t0:.2f} s (stopped at the edge, "
+          f"occupation {edge:.3e}); largest |r^2 / 2J^2t^2 - 1| {rel.max():.3e} (bound 1e-3)",
+          flush=True)
+    check(EDGE_THRESHOLD < edge < 0.1, f"[vmf a] band limit: edge occupation {edge}")
+    check(rel.max() < 1e-3, f"[vmf a] band limit: r^2 off by {rel.max()}")
+
+
+class JobSteps:
+    """The steps of one job in phase 10 (b)-(d): one first step and the timed
+    ones, each between two device syncs, with the RKF45 counts, the Jacobi
+    launches and the complex Grams of each step."""
+
+    def __init__(self, tag, card):
+        self.tag, self.card = tag, card
+        self.seconds, self.ivp, self.launches, self.complex = [], [], [], []
+
+    def run(self, step, nsteps, after=lambda: None):
+        from renormalizer_tpu_torch.backend import backend
+        from renormalizer_tpu_torch.lib import solvers
+        from renormalizer_tpu_torch.mps import trunc_device
+        from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+
+        for _ in range(nsteps):
+            before = dict(solvers.IVP_COUNTS)
+            launches0, complex0 = jacobi_eigh.launches, trunc_device.LINALG_EIGH_GRAMS
+            backend.sync()
+            t0 = time.perf_counter()
+            step()
+            backend.sync()
+            self.seconds.append(time.perf_counter() - t0)
+            self.ivp.append(_ivp_delta(before))
+            self.launches.append(jacobi_eigh.launches - launches0)
+            self.complex.append(trunc_device.LINALG_EIGH_GRAMS - complex0)
+            after()
+        print(f"{self.tag} ({self.card}) first step {self.seconds[0]:.4f} s; timed steps "
+              f"{[round(t, 4) for t in self.seconds[1:]]} s; RKF45 nfev/nsteps per step "
+              f"{[(c['nfev'], c['nsteps']) for c in self.ivp]}; Jacobi launches per step "
+              f"{self.launches}; complex Grams through torch.linalg.eigh per step "
+              f"{self.complex}", flush=True)
+
+
+def _record_constructor(tag, build):
+    """Build a job with every Gram eigh recorded; returns the job, its
+    constructor seconds, the kernel launches and the GramRecord."""
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+
+    grams = GramRecord(keep_grams=True)
+    trunc_device.jacobi_eigh = grams
+    try:
+        launches0 = jacobi_eigh.launches
+        backend.sync()
+        t0 = time.perf_counter()
+        job = build()
+        backend.sync()
+        seconds = time.perf_counter() - t0
+        launches = jacobi_eigh.launches - launches0
+    finally:
+        trunc_device.jacobi_eigh = jacobi_eigh
+    print(f"{tag}: constructor {seconds:.2f} s, jacobi launches {launches}", flush=True)
+    return job, seconds, launches, grams
+
+
+def _check_held(tag, grams, launches, held):
+    """Report a GramRecord and fail on a launch at the sweep cap or on a
+    (batch, n, dtype) that phase 3 did not hold."""
+    hist = grams.report(tag, launches)
+    unheld = sorted(set(grams.shapes()) - set(held))
+    check(not unheld, f"{tag}: Gram shapes {unheld} are not among the phase-3 cases")
+    return hist
+
+
+def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
+                   dts=None, thermal_div=100, warm_steps=2):
+    """Phase 10(b)-(d): the charge-diffusion job with MU-VMF and with
+    TDVP-PS2, and ThermalProp with MU-VMF in imaginary time, on the bench
+    chain.  Returns the kernel launches of each path and the timed s/step."""
+    import numpy as np
+
+    from renormalizer_tpu_torch import (
+        CompressConfig, CompressCriteria, EvolveConfig, EvolveMethod, MpDm,
+        Quantity, ThermalProp)
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.property import Property, ops as prop_ops
+    from renormalizer_tpu_torch.transport import ChargeDiffusionDynamics
+
+    model = holstein_chain(6)
+    timed, by_path = {}, {}
+    dts = dts or {"b": 20.0, "c": 20.0}
+    jacobi_eigh.launches = 0
+    trunc_device.LINALG_EIGH_GRAMS = 0
+    for key, method in (("b", EvolveMethod.tdvp_mu_vmf), ("c", EvolveMethod.tdvp_ps2)):
+        tag = (f"[vmf {key}] ChargeDiffusionDynamics holstein 6x(1+2) 6 levels, T=0, "
+               f"{method.name}, M={m}")
+        job, _, launches, grams = _record_constructor(tag, lambda: ChargeDiffusionDynamics(
+            model, compress_config=CompressConfig(CompressCriteria.fixed, max_bonddim=m),
+            evolve_config=EvolveConfig(method), stop_at_edge=False))
+        _check_held(f"[vmf {key}]", grams, launches,
+                    {(1, n, 4) for n in CHARGE_PATH_GRAMS})
+        grams.check_against_library(f"[vmf {key}]", gram_tol)
+        check(not job.latest_mps.is_complex and max(job.latest_mps.bond_dims) == m,
+              f"{tag}: start state {job.latest_mps.bond_dims}")
+        e0 = job.energies[0]
+
+        def after():
+            mps = job.latest_mps
+            occ, r2 = np.asarray(job.e_occupations_array[-1]), job.r_square_array[-1]
+            check(_all_finite(mps), f"{tag}: non-finite MPS")
+            check(abs(mps.mp_norm - 1) < NORM_TOL, f"{tag}: norm {mps.mp_norm}")
+            check(abs(occ.sum() - 1) < 1e-4, f"{tag}: occupations sum to {occ.sum()}")
+            check(np.isfinite(r2) and r2 >= 0, f"{tag}: r^2 {r2}")
+            drift = abs(job.energies[-1] - e0)
+            check(drift <= CHARGE_ENERGY_DRIFT * max(1.0, abs(e0)),
+                  f"{tag}: <H> moved from {e0} to {job.energies[-1]}")
+
+        steps = JobSteps(f"{tag}, dt {dts[key]} a.u.", card)
+        steps.run(lambda: job.evolve(dts[key], 1), nsteps, after)
+        drift = max(abs(e - e0) for e in job.energies)
+        print(f"{tag}: r^2 {np.round(job.r_square_array, 6).tolist()}; <H> drift "
+              f"{drift:.3e} (allowed {CHARGE_ENERGY_DRIFT:.0e} of max(1, |E|)); norm "
+              f"{job.latest_mps.mp_norm:.7f}; bond dims {job.latest_mps.bond_dims}", flush=True)
+        timed[key] = steps.seconds[1:]
+        if key == "c":
+            check(sum(steps.complex) > 0, f"{tag}: no complex Gram was counted")
+        if profile:
+            phase_profile_step(card, f"[vmf {key}]", lambda: job.evolve(dts[key], 1))
+    by_path["charge_diffusion"] = jacobi_eigh.launches
+
+    # (d) the kernel inside the time loop: imaginary-time MU-VMF of the MpDm
+    tag = f"[vmf d] ThermalProp holstein 6x(1+2) 6 levels, 298 K, tdvp_mu_vmf, M={m}"
+    jacobi_eigh.launches = 0
+    trunc_device.LINALG_EIGH_GRAMS = 0
+    prop_mpos = {}
+    for imol in range(model.mol_num):
+        prop_mpos.update(prop_ops.e_ph_static_correlation(model, imol=imol))
+    prop = Property(["e_rdm"] + list(prop_mpos), prop_mpos)
+    beta = Quantity(298, "K").to_beta()
+    rho = MpDm.max_entangled_ex(model)
+    rho.compress_config = CompressConfig(CompressCriteria.fixed, max_bonddim=m)
+    grams = GramRecord(keep_grams=True)
+    trunc_device.jacobi_eigh = grams
+    try:
+        t0 = time.perf_counter()
+        tp = ThermalProp(rho, evolve_config=EvolveConfig(EvolveMethod.tdvp_ps),
+                         properties=prop)
+        construct = jacobi_eigh.launches
+        # MU-VMF from the freshly expanded state (all bonds at 1e-10 padding)
+        # is too stiff to step: warm up by TDVP-PS, then switch
+        tp.evolve(None, warm_steps, beta / 20j)
+        tp.latest_mps.evolve_config = EvolveConfig(EvolveMethod.tdvp_mu_vmf)
+        print(f"{tag}: constructor and {warm_steps} TDVP-PS steps of beta/20 "
+              f"{time.perf_counter() - t0:.2f} s, jacobi launches {construct} and "
+              f"{jacobi_eigh.launches - construct}; bond dims {tp.latest_mps.bond_dims}",
+              flush=True)
+
+        def after():
+            rdm = np.asarray(prop.prop_res["e_rdm"][-1])
+            occ = tp.e_occupations_array[-1]
+            check(_all_finite(tp.latest_mps), f"{tag}: non-finite density matrix")
+            check(abs(occ.sum() - 1) < 1e-4, f"{tag}: occupations sum to {occ.sum()}")
+            check(np.isfinite(rdm).all() and abs(np.trace(rdm) - 1) < 1e-4,
+                  f"{tag}: e_rdm trace {np.trace(rdm)}")
+            check(tp.energies[-1] < tp.energies[-2], f"{tag}: energy did not fall")
+
+        steps = JobSteps(f"{tag}, steps of beta/{thermal_div}", card)
+        steps.run(lambda: tp.evolve(None, 1, beta / thermal_div / 1j), thermal_steps, after)
+    finally:
+        trunc_device.jacobi_eigh = jacobi_eigh
+    launches = jacobi_eigh.launches
+    check(all(n > 0 for n in steps.launches),
+          f"{tag}: a time step launched the Jacobi kernel {steps.launches} times")
+    _check_held("[vmf d]", grams, launches,
+                {(1, n, size) for size, ns in THERMAL_PATH_GRAMS.items() for n in ns})
+    grams.check_against_library("[vmf d]", gram_tol)
+    corr = {k: float(np.real(v[-1])) for k, v in prop.prop_res.items() if k != "e_rdm"}
+    print(f"{tag}: energies {np.round(tp.energies, 6).tolist()}; e_rdm diagonal "
+          f"{np.round(np.diag(prop.prop_res['e_rdm'][-1]).real, 6).tolist()}; "
+          f"S_0_j_0 {[round(corr[f'S_0_{j}_0'], 6) for j in range(model.mol_num)]}",
+          flush=True)
+    by_path["thermal_vmf"] = launches
+    timed["d"] = steps.seconds[1:]
+    if profile:
+        phase_profile_step(card, "[vmf d]", lambda: tp.evolve(None, 1, beta / thermal_div / 1j))
+    return by_path, timed
+
+
 def phase_profile_step(card, tag, step):
     """Phase 7: one more evolution step (``step()``) under torch.profiler."""
     import torch
@@ -1113,20 +1448,34 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device visible")
     profile = "--profile" in sys.argv[1:]
-    name, card = phase_environment()
-    phase_build()
-    record = phase_kernels()
+    phase_s = {}
+
+    def timed(phase, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    name, card = timed("1", phase_environment)
+    timed("2", phase_build)
+    record = timed("3", phase_kernels)
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
+    t0 = time.perf_counter()
     with prof:
         launches, wall_s = phase_main_path(card)
     if profile:
         print_device_breakdown(prof, wall_s, card)
-    phase_oracle()
-    evolve_launches, steps = phase_evolution(card, profile, record["tol_f32"])
-    phase_finite_t_oracles()
-    kubo_launches, thermal_s, kubo_s = phase_kubo(card, profile, record["tol_f32"])
+    phase_s["4"] = round(time.perf_counter() - t0, 1)
+    timed("5", phase_oracle)
+    evolve_launches, steps = timed("6", phase_evolution, card, profile, record["tol_f32"])
+    timed("8", phase_finite_t_oracles)
+    kubo_launches, thermal_s, kubo_s = timed("9", phase_kubo, card, profile,
+                                             record["tol_f32"])
+    timed("10a", phase_vmf_oracles)
+    vmf_launches, vmf_s = timed("10b-d", phase_vmf_jobs, card, profile, record["tol_f32"],
+                                dts={"b": 1.0, "c": 20.0})
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -1136,15 +1485,20 @@ def main():
             k: [round(t, 4) for t in v] for k, v in steps.items()},
         "kubo_thermal_step_seconds": [round(t, 4) for t in thermal_s],
         "kubo_timed_step_seconds": [round(t, 4) for t in kubo_s],
+        "vmf_timed_step_seconds": {k: [round(t, 4) for t in v] for k, v in vmf_s.items()},
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
-                    for k, v in record["timed"].items()}}), flush=True)
+                    for k, v in record["timed"].items()},
+        "phase_seconds": phase_s,
+        "script_seconds": round(time.perf_counter() - _T0, 1)}), flush=True)
     by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
-               "transport_kubo": kubo_launches}
+               "transport_kubo": kubo_launches, **vmf_launches}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
           f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
-          f"constructor {kubo_launches}", flush=True)
+          f"constructor {kubo_launches}, ChargeDiffusionDynamics (b)-(c) "
+          f"{vmf_launches['charge_diffusion']}, MU-VMF ThermalProp (d) "
+          f"{vmf_launches['thermal_vmf']}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,

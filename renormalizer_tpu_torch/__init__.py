@@ -3,9 +3,11 @@
 DMRG, real-time dynamics and finite-temperature density matrices for
 electron-phonon and spin-boson models on MPS/MPO, running on one NVIDIA
 Hopper card (or on the CPU for tests).  The port carries the 2-site DMRG main
-path, the one-site TDVP-PS and propagate-and-compress evolution, the thermal
+path, every evolution method of ``Mps.evolve`` (one- and two-site TDVP-PS,
+MU-VMF/VMF, MU-CMF, propagate-and-compress), the thermal
 density matrix (``MpDm``, ``ThermalProp``) and the jobs built on them
-(``sbm``, ``spectra``, ``transport.TransportKubo``) of the JAX package
+(``sbm``, ``spectra``, ``transport``: Kubo mobility, charge diffusion,
+the spectral function; ``property``) of the JAX package
 ``renormalizer_tpu``, which stays the reference; its one
 hand-written kernel (the Jacobi eigensolver of the truncation step) lives in
 ``csrc/`` and is built with ``nvcc`` at first use.  The port imports torch,
@@ -24,6 +26,7 @@ from renormalizer_tpu_torch.model import (
     OpSum,
     Phonon,
     SpinBosonModel,
+    TI1DModel,
 )
 from renormalizer_tpu_torch.utils import (
     CompressConfig,

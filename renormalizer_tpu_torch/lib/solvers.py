@@ -1,16 +1,18 @@
 r"""Iterative solvers of the local problems: Davidson for DMRG, Lanczos
-``expm`` and the one-site TDVP-PS site visit for time evolution.
+``expm`` and the one-site TDVP-PS site visit for time evolution, and the
+adaptive RKF45 ``solve_ivp`` of the VMF/CMF schemes.
 
 Port of ``_davidson_core``/``davidson_fused``, ``_lanczos_expm``,
-``expm_krylov``/``expm_krylov_fused`` and ``tdvp_ps_site_fused``
-(``renormalizer_tpu/lib/solvers.py:105-310, 559-838``).  The JAX package fuses the
-loop into one ``lax.while_loop``; PyTorch runs eagerly, so the loop is a
-Python loop whose convergence test reads one scalar per iteration — a few
-microseconds on a local card.  The trial basis is a fixed (S, N) workspace
-with thick restart; the S x S subspace eigh is ``torch.linalg.eigh``.
+``expm_krylov``/``expm_krylov_fused``, ``tdvp_ps_site_fused`` and
+``solve_ivp`` (``renormalizer_tpu/lib/solvers.py:105-310, 559-960``).  The
+JAX package fuses the Davidson loop into one ``lax.while_loop``; PyTorch
+runs eagerly, so the loop is a Python loop whose convergence test reads one
+scalar per iteration — a few microseconds on a local card.  The trial basis
+is a fixed (S, N) workspace with thick restart; the S x S subspace eigh is
+``torch.linalg.eigh``.
 """
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -306,3 +308,132 @@ def tdvp_ps_site_fused(dt, c, ltensor, w, rtensor, neighbor, cshape,
     else:
         nbr_new = torch.tensordot(neighbor.to(dtype), bond_t, dims=1)
     return site, new_env, nbr_new
+
+
+# --- adaptive RKF45 initial-value solver -------------------------------------
+
+class IvpResult(NamedTuple):
+    y: torch.Tensor
+    t: float
+    nfev: int
+    nsteps: int
+
+
+# Fehlberg 4(5) coefficients
+_FB_A = np.array(
+    [
+        [0, 0, 0, 0, 0],
+        [1 / 4, 0, 0, 0, 0],
+        [3 / 32, 9 / 32, 0, 0, 0],
+        [1932 / 2197, -7200 / 2197, 7296 / 2197, 0, 0],
+        [439 / 216, -8, 3680 / 513, -845 / 4104, 0],
+        [-8 / 27, 2, -3544 / 2565, 1859 / 4104, -11 / 40],
+    ]
+)
+_FB_C = np.array([0, 1 / 4, 3 / 8, 12 / 13, 1, 1 / 2])
+_FB_B5 = np.array([16 / 135, 0, 6656 / 12825, 28561 / 56430, -9 / 50, 2 / 55])
+_FB_B4 = np.array([25 / 216, 0, 1408 / 2565, 2197 / 4104, -1 / 5, 0])
+
+# Totals of the RKF45 solves since import (``chip_smoke.py`` prints them per
+# evolution step): solves, right-hand-side evaluations, attempted steps.
+IVP_COUNTS = {"solves": 0, "nfev": 0, "nsteps": 0}
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(torch.abs(x) ** 2))
+
+
+def _rk_step_finish(y, ks, dt, atol, rtol):
+    """The 5th/4th order solutions and the per-component-scaled RMS error
+    (SciPy's ``atol + rtol * max(|y0|, |y1|)`` rule, ref
+    ``lib/integrate/_ivp/rk.py``), all on the device; the error stays a
+    0-d tensor for the caller's one host read."""
+    b5 = torch.as_tensor(_FB_B5, device=ks.device).to(ks.dtype)
+    b4 = torch.as_tensor(_FB_B4, device=ks.device).to(ks.dtype)
+    y5 = y + dt * torch.tensordot(b5, ks, dims=1)
+    y4 = y + dt * torch.tensordot(b4, ks, dims=1)
+    scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y5))
+    return y5, _rms((y5 - y4) / scale)
+
+
+def _select_initial_step(fun, t0, y0, f0, direction, rtol, atol):
+    """SciPy's empirical initial-step rule (``_ivp/common.py``): matching it
+    keeps the accepted-step counts comparable to the reference's."""
+    scale = atol + rtol * torch.abs(y0)
+    d0 = float(_rms(y0 / scale))
+    d1 = float(_rms(f0 / scale))
+    h0 = 1e-6 if d0 < 1e-5 or d1 < 1e-5 else 0.01 * d0 / d1
+    y1 = y0 + h0 * direction * f0
+    f1 = fun(t0 + h0 * direction, y1)
+    d2 = float(_rms((f1 - f0) / scale)) / h0
+    if d1 <= 1e-15 and d2 <= 1e-15:
+        h1 = max(1e-6, h0 * 1e-3)
+    else:
+        h1 = (0.01 / max(d1, d2)) ** 0.2  # order 4+1
+    return min(100 * h0, h1)
+
+
+def solve_ivp(fun, t_span, y0, rtol=1e-3, atol=1e-6, max_steps=100000,
+              first_step=None, max_step=np.inf) -> IvpResult:
+    """Adaptive RKF45 integration of ``dy/dt = fun(t, y)`` from ``t_span[0]``
+    to ``t_span[1]``, final state only (the evolution schemes never need the
+    dense output).  Port of ``renormalizer_tpu/lib/solvers.py:845-960``.
+
+    The controller runs on the host, because ``fun`` (the TDVP-VMF equation
+    of motion) keeps host-side bookkeeping, but the vector arithmetic stays
+    on the device and exactly one scalar (the scaled error) is read per
+    attempted step, after the three of SciPy's initial-step rule.  Error
+    control is per component, ``atol + rtol |y|``, with SciPy's step-factor
+    clamps; a non-finite error shrinks the step tenfold and counts as a
+    step, and a step at the ``span 1e-12`` floor is accepted whatever its
+    error."""
+    t0, t1 = t_span
+    y = torch.as_tensor(y0)
+    direction = np.sign(t1 - t0) if t1 != t0 else 1.0
+    span = abs(t1 - t0)
+    if span == 0:
+        return IvpResult(y, t0, 0, 0)
+    nfev = 0
+    if first_step is not None:
+        h = first_step
+    else:
+        f0 = fun(t0, y)
+        h = _select_initial_step(fun, t0, y, f0, direction, rtol, atol)
+        nfev += 2
+    h = min(h, span, max_step)
+    if not np.isfinite(h):
+        raise FloatingPointError("solve_ivp: right-hand side produced non-finite values")
+    t = t0
+    nsteps = 0
+    while (t - t1) * direction < 0 and nsteps < max_steps:
+        h = min(h, abs(t1 - t), max_step)
+        dt = direction * h
+        ks = []
+        for i in range(6):
+            yi = y
+            for j in range(i):
+                if _FB_A[i, j] != 0:
+                    yi = yi + dt * _FB_A[i, j] * ks[j]
+            ks.append(fun(t + _FB_C[i] * dt, yi))
+            nfev += 1
+        y5, err_dev = _rk_step_finish(y, torch.stack(ks), dt, atol, rtol)
+        err = float(err_dev)  # the one host read per attempted step
+        if not np.isfinite(err):
+            h = h * 0.1
+            nsteps += 1
+            if h < span * 1e-14:
+                raise FloatingPointError(
+                    "solve_ivp: right-hand side produced non-finite values")
+            continue
+        if err <= 1.0 or h <= span * 1e-12:
+            t = t + dt
+            y = y5
+            nsteps += 1
+            factor = 10.0 if err == 0 else min(10.0, max(0.2, 0.9 * err ** (-0.2)))
+            h = h * factor
+        else:
+            h = h * max(0.2, 0.9 * err ** (-0.2))
+    IVP_COUNTS["solves"] += 1
+    IVP_COUNTS["nfev"] += nfev
+    IVP_COUNTS["nsteps"] += nsteps
+    return IvpResult(y, t, nfev, nsteps)

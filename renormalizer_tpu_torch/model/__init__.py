@@ -12,5 +12,6 @@ from renormalizer_tpu_torch.model.model import (
     Model,
     HolsteinModel,
     SpinBosonModel,
+    TI1DModel,
     construct_j_matrix,
 )

@@ -1,7 +1,7 @@
 r"""Model classes binding basis sets and sum-of-product Hamiltonians.
 
 Numpy copy of ``renormalizer_tpu/model/model.py`` holding ``Model``,
-``HolsteinModel`` and ``SpinBosonModel``.
+``HolsteinModel``, ``SpinBosonModel`` and ``TI1DModel``.
 """
 
 import logging
@@ -321,3 +321,46 @@ class SpinBosonModel(Model):
                 Op("sigma_z", "spin") * Op("x", iph) * (-ph.omega[1] ** 2 * ph.dis[1])
             )
         super().__init__(basis, ham, dipole={"spin": dipole if dipole is not None else 0})
+
+
+class TI1DModel(Model):
+    r"""Translationally invariant 1D model with PBC
+    (reference ``model/model.py:442-510``).
+
+    Unit-cell DoF names become ``("cell{i}", dof)``.  Nonlocal term DoFs are
+    ``(distance, dof)`` pairs resolved modulo ``ncell``.
+    """
+
+    def __init__(
+        self,
+        basis: List[BasisSet],
+        local_ham_terms: List[Op],
+        nonlocal_ham_terms: List[Op],
+        ncell: int,
+    ):
+        full_basis = []
+        for i in range(ncell):
+            for local_basis in basis:
+                new_dofs = [(f"cell{i}", dof) for dof in local_basis.dofs]
+                if local_basis.multi_dof:
+                    full_basis.append(local_basis.copy(new_dofs))
+                else:
+                    full_basis.append(local_basis.copy(new_dofs[0]))
+
+        full_ham = []
+        for i in range(ncell):
+            for op in local_ham_terms:
+                new_dofs = [(f"cell{i}", dof) for dof in op.dofs]
+                full_ham.append(Op(op.symbol, new_dofs, op.factor, op.qn_list))
+            for op in nonlocal_ham_terms:
+                new_dofs = []
+                for old_dof in op.dofs:
+                    assert (
+                        isinstance(old_dof, tuple)
+                        and len(old_dof) == 2
+                        and isinstance(old_dof[0], int)
+                    )
+                    cell_id = (i + old_dof[0]) % ncell
+                    new_dofs.append((f"cell{cell_id}", old_dof[1]))
+                full_ham.append(Op(op.symbol, new_dofs, op.factor, op.qn_list))
+        super().__init__(full_basis, full_ham)

@@ -11,6 +11,7 @@ basis selected on the host from the candidate spectrum of the current
 update (one small fetch per update).
 """
 
+import hashlib
 import logging
 from typing import List
 
@@ -21,6 +22,7 @@ from renormalizer_tpu_torch.backend import backend, np_dtype
 from renormalizer_tpu_torch.model import Model
 from renormalizer_tpu_torch.mps import trunc_device
 from renormalizer_tpu_torch.mps.lib import select_indices
+from renormalizer_tpu_torch.mps.trunc_device import _double
 from renormalizer_tpu_torch.mps.svd_qn import add_outer
 from renormalizer_tpu_torch.ops.contract import chain_overlap, tensordot1
 from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
@@ -35,9 +37,17 @@ def to_numpy(mt: torch.Tensor) -> np.ndarray:
     return mt.detach().resolve_conj().cpu().numpy()
 
 
-def _double(mt: torch.Tensor) -> torch.Tensor:
-    """A site tensor in double precision (itself when it already is)."""
-    return mt.to(torch.complex128 if mt.is_complex() else torch.float64)
+def _content_digest(array):
+    """128-bit digest of a host array's content, None for a device tensor
+    (hashing one would read it back).  ``Mps.expectations`` keys its shared
+    environments by it, so independently built identical MPO sites share
+    them."""
+    if not isinstance(array, np.ndarray):
+        return None
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str((array.shape, array.dtype.str)).encode())
+    h.update(np.ascontiguousarray(array).tobytes())
+    return h.digest()
 
 
 def check_orthogonal(ms: torch.Tensor, left: bool, rtol=None, atol=None) -> bool:
@@ -58,6 +68,8 @@ class MatrixProduct:
     def __init__(self):
         # NOTE: update `metacopy` when adding attributes
         self._mp: List = []
+        # content digests of host-built site tensors (see ``_content_digest``)
+        self._mt_hashes: List = []
         self.dtype = backend.real_dtype
         self.model: Model = None
         self.compress_config: CompressConfig = CompressConfig()
@@ -553,6 +565,7 @@ class MatrixProduct:
         new = self.metacopy()
         for i in range(self.site_num):
             new[i] = self[i]
+        new._mt_hashes = list(self._mt_hashes)
         return new
 
     def metacopy(self) -> "MatrixProduct":
@@ -565,10 +578,12 @@ class MatrixProduct:
         new.qnidx = self.qnidx
         new.qntot = None if self.qntot is None else np.asarray(self.qntot).copy()
         new.to_right = self.to_right
+        new._mt_hashes = [None] * len(self)
         return new
 
     def build_empty_mp(self, num):
         self._mp = [None] * num
+        self._mt_hashes = [None] * num
 
     # --- container protocol -------------------------------------------------------
     def _as_site(self, array) -> torch.Tensor:
@@ -583,6 +598,7 @@ class MatrixProduct:
         if len(self._mp) != 0:
             assert mt.shape[0] == self._mp[-1].shape[-1]
         self._mp.append(mt)
+        self._mt_hashes.append(_content_digest(array))
 
     def __getitem__(self, item):
         if isinstance(item, slice):
@@ -596,6 +612,10 @@ class MatrixProduct:
                 "Matrix physical bond dimension does not match system information"
             )
         self._mp[key] = mt
+        idx = key if key >= 0 else key + self.site_num
+        if len(self._mt_hashes) <= idx:
+            self._mt_hashes.extend([None] * (idx + 1 - len(self._mt_hashes)))
+        self._mt_hashes[idx] = _content_digest(array)
 
     def __iter__(self):
         return iter(self._mp)

@@ -2,16 +2,20 @@ r"""Matrix product states: construction, measurement and time evolution.
 
 Port of ``renormalizer_tpu/mps/mps.py`` (reference
 ``renormalizer/mps/mps.py:118-2169``): the constructors, normalization,
-measurements, bond-dimension expansion, the one-site projector-splitting
-TDVP (``EvolveMethod.tdvp_ps``, PhysRevB.94.165116), the propagate-and-compress
-family (Taylor, RK4 and Butcher-tableau RK, fixed or adaptive), the exact
-local propagation and ``BraKetPair``.  TDVP-PS2, VMF and CMF are not ported
-yet; :meth:`Mps.evolve` names them and raises.
+measurements (expectations with the shared-environment cache, reduced
+density matrices, entropies), bond-dimension expansion, all eight
+evolution methods — one- and two-site projector-splitting TDVP
+(PhysRevB.94.165116), the variable and constant mean-field TDVP with the
+matrix-unfolding regularization (arXiv:1907.12044), the propagate-and-
+compress family (Taylor, RK4 and Butcher-tableau RK, fixed or adaptive) —
+the exact local propagation and ``BraKetPair``.
 """
 
+import itertools
 import logging
+from collections import Counter, deque
 from functools import reduce, wraps
-from typing import Dict, Union
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -25,8 +29,11 @@ from renormalizer_tpu_torch.mps.lib import Environ, compressed_sum, select_basis
 from renormalizer_tpu_torch.mps.mp import MatrixProduct, to_numpy
 from renormalizer_tpu_torch.mps.mpo import Mpo
 from renormalizer_tpu_torch.mps.svd_qn import add_outer, get_qn_mask
+from renormalizer_tpu_torch.mps.trunc_device import _double
 from renormalizer_tpu_torch.ops.contract import (
+    contract_one_site,
     einsum,
+    hop_expr,
     hop_spec,
     normalize_chain_device,
     tensordot1,
@@ -37,6 +44,7 @@ from renormalizer_tpu_torch.utils import (
     EvolveMethod,
     OptimizeConfig,
     calc_vn_entropy,
+    calc_vn_entropy_dm,
 )
 
 logger = logging.getLogger(__name__)
@@ -369,13 +377,44 @@ class Mps(MatrixProduct):
             return val.real
         return val
 
-    def expectations(self, mpos, self_conj: "Mps" = None) -> np.ndarray:
-        """Many expectations of one state, one environment sweep each
-        (reference ``mps.py:527-575`` without the shared-environment cache)."""
+    def expectations(self, mpos, self_conj: "Mps" = None, opt: bool = True) -> np.ndarray:
+        """Many expectations of one state (reference ``mps.py:527-575``,
+        cache ``mps.py:2103-2169``).  Environments of the MPO site prefixes
+        (from the left) and suffixes (from the right) that more than one MPO
+        shares are contracted once, keyed by the sites' content digests (so
+        independently built identical MPOs share them; a site written from
+        a device tensor is keyed by identity).  All values are read back
+        together.  ``opt=False`` is the plain loop of ``expectation``."""
+        mpos = [Mpo(self.model, mpo) if isinstance(mpo, (Op, OpSum)) else mpo
+                for mpo in mpos]
         if self_conj is None:
             self_conj = self.conj()
-        results = np.array([complex(self.expectation(mpo, self_conj))
-                            for mpo in mpos])
+        if not opt:
+            results = np.array([complex(self.expectation(mpo, self_conj))
+                                for mpo in mpos])
+        else:
+            hash_to_obj = {}
+            mpos_hash: List[List] = []
+            for mpo in mpos:
+                mpo_hash = []
+                hashes = mpo._mt_hashes
+                for i, m in enumerate(mpo):
+                    key = hashes[i] if i < len(hashes) and hashes[i] is not None else id(m)
+                    hash_to_obj[key] = m
+                    mpo_hash.append(key)
+                mpos_hash.append(mpo_hash)
+            l_envs = _construct_freq_environ(mpos_hash, hash_to_obj, self, "L", self_conj)
+            r_envs = _construct_freq_environ(mpos_hash, hash_to_obj, self, "R", self_conj)
+            values = []
+            for mpo, mpo_hash in zip(mpos, mpos_hash):
+                l_env, l_idx = _get_freq_environ(l_envs, mpo_hash, "L", np.inf)
+                r_env, r_idx = _get_freq_environ(r_envs, mpo_hash, "R",
+                                                 len(mpo) - l_idx - 1)
+                for i in range(l_idx + 1, r_idx):
+                    l_env = contract_one_site(l_env, self[i], mpo[i], "L", self_conj[i])
+                values.append(torch.sum(l_env.reshape(-1) * r_env.reshape(-1))
+                              .to(torch.complex128))
+            results = torch.stack(values).cpu().numpy() if values else np.zeros(0)
         if np.allclose(results.imag, 0):
             return results.real
         return results
@@ -423,17 +462,99 @@ class Mps(MatrixProduct):
             rmat = rtensor.reshape(rtensor.shape[0], rtensor.shape[-1])
             t = torch.tensordot(lmat, ms.conj(), dims=([0], [0]))
             t = torch.tensordot(t, rmat, dims=([-1], [0]))
-            t = to_numpy(torch.tensordot(t, ms, dims=([0, -1], [0, -1])))
+            if ms.ndim == 3:
+                t = torch.tensordot(t, ms, dims=([0, -1], [0, -1]))
+            else:
+                t = torch.tensordot(t, ms, dims=([0, -1, -2], [0, -1, -2]))
+            t = to_numpy(t)
             assert np.allclose(t, t.conj().T, atol=1e-6)
             rdm[ims] = t
         return rdm
 
+    def calc_2site_rdm(self) -> Dict:
+        r"""2-site reduced density matrices, keyed by ``(i, j)``, i < j
+        (reference ``mps.py:1600-1655``)."""
+        identity = Mpo.identity(self.model)
+        environ_R = Environ(self, identity, "R")
+        environ_L = Environ(self, identity, "L")
+        L_comp, R_comp = [], []
+        for ims, ms in enumerate(self):
+            lt = environ_L.GetLR("L", ims - 1, self, identity, method="Enviro")
+            lt = lt.reshape(lt.shape[0], lt.shape[-1]).to(ms.dtype)
+            t = torch.tensordot(lt, ms.conj(), dims=([0], [0]))
+            if ms.ndim == 3:
+                t = torch.tensordot(t, ms, dims=([0], [0]))
+            else:
+                t = torch.tensordot(t, ms, dims=([0, 2], [0, 2]))
+            L_comp.append(t.permute(0, 2, 1, 3))
+            rt = environ_R.GetLR("R", ims + 1, self, identity, method="Enviro")
+            rt = rt.reshape(rt.shape[0], rt.shape[-1]).to(ms.dtype)
+            t = torch.tensordot(ms.conj(), rt, dims=([ms.ndim - 1], [0]))
+            if ms.ndim == 3:
+                t = torch.tensordot(t, ms, dims=([2], [2]))
+            else:
+                t = torch.tensordot(t, ms, dims=([2, 3], [2, 3]))
+            R_comp.append(t.permute(0, 2, 1, 3))
+
+        rdm = {}
+        for ims in range(self.site_num):
+            tensor = L_comp[ims]
+            for jms in range(ims + 1, self.site_num):
+                if jms != ims + 1:
+                    kms = jms - 1
+                    tensor = torch.tensordot(tensor, self[kms].conj(), dims=([2], [0]))
+                    if self[kms].ndim == 3:
+                        tensor = torch.tensordot(tensor, self[kms], dims=([2, 3], [0, 1]))
+                    else:
+                        tensor = torch.tensordot(tensor, self[kms],
+                                                 dims=([2, 3, 4], [0, 1, 2]))
+                res = torch.tensordot(tensor, R_comp[jms],
+                                      dims=([2, 3], [0, 1])).permute(0, 2, 1, 3)
+                rdm[(ims, jms)] = to_numpy(res.reshape(res.shape[0] * res.shape[1], -1))
+        return rdm
+
+    def calc_edof_rdm(self) -> np.ndarray:
+        r"""<a_i^dagger a_j> over the electronic DoFs
+        (reference ``mps.py:1657-1687``)."""
+        key = "edof_reduced_density_matrix"
+        n_e = self.model.n_edofs
+        e_dofs = self.model.e_dofs
+        if key not in self.model.mpos:
+            mpos = []
+            for idx, dof1 in enumerate(e_dofs):
+                for dof2 in e_dofs[idx:]:
+                    mpos.append(Mpo(self.model, terms=Op(r"a^\dagger a", [dof1, dof2])))
+            self.model.mpos[key] = mpos
+        expectations = deque(self.expectations(self.model.mpos[key]))
+        rdm = np.zeros((n_e, n_e), dtype=np.complex128)
+        for i in range(n_e):
+            for j in range(i, n_e):
+                rdm[i, j] = expectations.popleft()
+                rdm[j, i] = np.conj(rdm[i, j])
+        return rdm
+
     def calc_entropy(self, entropy_type):
-        """Von Neumann entropy; the port carries the bond entropy
-        (reference ``mps.py:1689-1732``)."""
+        """``"1site"``, ``"2site"``, ``"mutual"`` or ``"bond"`` Von Neumann
+        entropy (reference ``mps.py:1689-1732``)."""
+        if entropy_type in ("1site", "2site"):
+            rdm = self.calc_1site_rdm() if entropy_type == "1site" else self.calc_2site_rdm()
+            return {key: calc_vn_entropy_dm(dm) for key, dm in rdm.items()}
+        if entropy_type == "mutual":
+            return self.calc_2site_mutual_entropy()
         if entropy_type == "bond":
             return self.calc_bond_entropy()
-        raise NotImplementedError(f"entropy type {entropy_type!r} is not ported")
+        raise ValueError(f"unsupported entropy type {entropy_type}")
+
+    def calc_2site_mutual_entropy(self) -> np.ndarray:
+        """Mutual information m_ij = (s_i + s_j - s_ij) / 2
+        (Chemical Physics 323 (2006) 519; reference ``mps.py:1734-1757``)."""
+        e1 = self.calc_entropy("1site")
+        e2 = self.calc_entropy("2site")
+        n = self.site_num
+        mut = np.zeros((n, n))
+        for i, j in itertools.combinations(range(n), 2):
+            mut[i, j] = (e1[i] + e1[j] - e2[(i, j)]) / 2
+        return mut + mut.T
 
     def calc_bond_singular_values(self) -> np.ndarray:
         mps = self.copy()
@@ -464,11 +585,12 @@ class Mps(MatrixProduct):
             EvolveMethod.prop_and_compress: self._evolve_prop_and_compress,
             EvolveMethod.prop_and_compress_tdrk4: self._evolve_prop_and_compress_tdrk4,
             EvolveMethod.prop_and_compress_tdrk: self._evolve_prop_and_compress_tdrk,
+            EvolveMethod.tdvp_mu_vmf: self._evolve_tdvp_mu_vmf,
+            EvolveMethod.tdvp_vmf: self._evolve_tdvp_mu_vmf,
+            EvolveMethod.tdvp_mu_cmf: self._evolve_tdvp_mu_cmf,
             EvolveMethod.tdvp_ps: self._evolve_tdvp_ps,
-        }.get(method)
-        if evolve is None:
-            raise NotImplementedError(
-                f"evolution method {method} ({method.value}) is not ported yet")
+            EvolveMethod.tdvp_ps2: self._evolve_tdvp_ps2,
+        }[method]
         new_mps = evolve(mpo, evolve_dt)
         if normalize:
             if np.iscomplex(evolve_dt):
@@ -725,6 +847,293 @@ class Mps(MatrixProduct):
             mps._switch_direction()
         return mps
 
+    @adaptive_tdvp
+    def _evolve_tdvp_ps2(self, mpo, evolve_dt) -> "Mps":
+        """Two-site TDVP with projector splitting and bond-adaptive
+        truncation (reference ``mps.py:1406-1517``): each visit evolves the
+        two-site tensor forward by a Lanczos expm, truncates it by the
+        compress config (``_update_mps``: a real Gram goes to the Jacobi
+        kernel, a complex one to ``torch.linalg.eigh``, counted in
+        ``trunc_device.LINALG_EIGH_GRAMS``) and evolves the kept site
+        backward.  The OFS site swap is not ported (``compress_config.ofs``
+        raises)."""
+        if self.compress_config.ofs is not None:
+            raise NotImplementedError(
+                "TDVP-PS2 with OFS (optimal fermion/site ordering) is not ported")
+        if np.iscomplex(evolve_dt):
+            mps = self.copy()
+        else:
+            mps = self.to_complex()
+        if mps.is_complex:
+            mpo = _complex_mpo_twin(mpo)
+        environ = Environ(mps, mpo)
+        for _ in range(2):
+            for imps in mps.iter_idx_list(full=False):
+                if mps.to_right:
+                    lidx, cidx0, cidx1, ridx = imps - 1, imps, imps + 1, imps + 2
+                    cidx2 = cidx1
+                    last_idx = len(mps) - 2
+                else:
+                    lidx, cidx0, cidx1, ridx = imps - 2, imps - 1, imps, imps + 1
+                    cidx2 = cidx0
+                    last_idx = 1
+                l_array = environ.read("L", lidx)
+                r_array = environ.read("R", ridx)
+                ms2 = tensordot1(mps[cidx0], mps[cidx1])
+                formula, operands = hop_spec(l_array, r_array,
+                                             [mpo[cidx0], mpo[cidx1]], ms2.shape)
+                mps_t = solvers.expm_krylov_fused(formula, operands,
+                                                  -1j * evolve_dt / 2, ms2)
+                qnbigl, qnbigr, _ = mps._get_big_qn([cidx0, cidx1])
+                mps._update_mps(mps_t, [cidx0, cidx1], qnbigl, qnbigr)
+                if imps == last_idx:
+                    continue
+                if mps.to_right:
+                    l_array = environ.GetLR("L", lidx + 1, mps, mpo, itensor=l_array,
+                                            method="System")
+                else:
+                    r_array = environ.GetLR("R", ridx - 1, mps, mpo, itensor=r_array,
+                                            method="System")
+                ms1 = mps[cidx2]
+                formula, operands = hop_spec(l_array, r_array, [mpo[cidx2]], ms1.shape)
+                mps[cidx2] = solvers.expm_krylov_fused(formula, operands,
+                                                       1j * evolve_dt / 2, ms1)
+                mps._push_cano(cidx2)
+            mps._switch_direction()
+        return mps
+
+    def _evolve_tdvp_mu_vmf(self, mpo, evolve_dt) -> "Mps":
+        """TDVP variable mean field, for ``tdvp_mu_vmf`` and ``tdvp_vmf``
+        (arXiv:1907.12044; reference ``mps.py:887-1094``): one adaptive
+        RKF45 (``solvers.solve_ivp``) over the qn-masked coefficients of
+        all sites, whose right-hand side projects each site's H|psi> on the
+        tangent space and applies a regularized inverse of the reduced
+        density matrix of the sites to its right.
+
+        ``tdvp_mu_vmf`` takes that inverse from the matrix unfolding: each
+        right unfolding of a copy of the state is factorized by
+        ``trunc_device.compress_factors`` (real Grams on the Jacobi kernel,
+        on every right-hand side) and ``u diag(s)`` is carried to the left
+        neighbour.  ``tdvp_vmf`` eigen-decomposes the right overlap ``S_R``.
+        With ``vmf_auto_switch`` the state switches between them by the
+        smallest singular value (eigenvalue) of the last right-hand side;
+        those minima stay on the device and are read once, after the
+        solve.
+
+        The integration runs in double precision whatever the working
+        precision, and the result is cast back.  The regularized inverse
+        amplifies the right-hand side along the bond's padding directions
+        (1/reg(s) ~ 1e5 in MU-VMF, up to 1e10 in VMF), so in single
+        precision rounding becomes noise in the right-hand side and the
+        RKF45 controller shrinks the step: on the 3-molecule chain of
+        ``tests/test_evolve.py`` on the CPU in fp32 one step of 1.0 of VMF
+        integrated in single precision does not reach its end in 2000
+        right-hand sides, MU-VMF takes 290 (and did not finish in 15
+        minutes while the truncation's QRs and complex Gram eigh ran in
+        single precision, ``trunc_device._qr``/``gram_eigh``); integrated
+        in double precision they take 314 and 212, as in fp64.  Real Grams
+        then reach the Jacobi kernel's f64 path,
+        complex ones ``torch.linalg.eigh`` in complex128."""
+        if not np.iscomplex(evolve_dt) or self.is_complex:
+            mpo = _complex_mpo_twin(mpo)
+        config = self.evolve_config
+        imag_time = np.iscomplex(evolve_dt)
+        if imag_time:
+            evolve_dt = -evolve_dt.imag
+            coef = -1
+        else:
+            coef = 1j
+
+        if not (config.force_ovlp and not self.to_right):
+            self.ensure_left_canonical()
+        mps = self.copy() if imag_time else self.to_complex()
+        # integrate in double precision (see the docstring)
+        narrow = mps.dtype
+        _retype(mps, _double(mps[0]).dtype)
+        if isinstance(mpo, Mpo):
+            mpo = _double_mpo_twin(mpo)
+        mpo_t = _normalize_mpo_t(mpo)
+        qn_mask_list, mask_idx_list, position = _site_masks(mps)
+        mu = config.method == EvolveMethod.tdvp_mu_vmf
+        last = mps.site_num - 1
+        sw_min_list = []
+
+        def func_vmf(t, y):
+            sw_min_list.clear()
+            for imps in range(mps.site_num):
+                mps[imps] = _masked_to_site(y[position[imps]:position[imps + 1]],
+                                            mask_idx_list[imps], qn_mask_list[imps].shape)
+            mpo_now = mpo_t(t, mps=mps)
+            if mu:
+                environ_mps = mps.copy()
+            else:
+                environ_mps = mps
+                S_R = torch.ones((1, 1), dtype=mps[0].dtype, device=mps[0].device)
+            environ = Environ(environ_mps, mpo_now, "L")
+            S_L_list, S_L_inv_list = _left_overlaps(mps, config.force_ovlp)
+
+            hop_y = [None] * mps.site_num
+            for imps in mps.iter_idx_list(full=True):
+                shape = list(mps[imps].shape)
+                ltensor = environ.read("L", imps - 1)
+                if imps == last:
+                    # coefficient site: no projector
+                    rtensor = torch.ones((1, 1, 1), dtype=mps[0].dtype, device=mps[0].device)
+                    S_inv = torch.eye(1, dtype=mps[0].dtype, device=mps[0].device)
+                    islast = True
+                else:
+                    islast = False
+                    if mu:
+                        rtensor, S_inv, s_min = _mu_gauge_step(
+                            environ, environ_mps, mpo_now, imps, config.reg_epsilon)
+                    else:
+                        rtensor = environ.GetLR("R", imps + 1, environ_mps, mpo_now,
+                                                method="System")
+                        S_R = transferMat(environ_mps, None, "R", imps + 1, S_R)
+                        w, u = torch.linalg.eigh(S_R)
+                        w = torch.clamp(w, min=0)
+                        s_min = w.min()
+                        epsilon = config.reg_epsilon
+                        w = w + epsilon * torch.exp(-w / epsilon)
+                        S_inv = ((u * (1.0 / w)[None, :]) @ u.mH).T
+                    sw_min_list.append(s_min)
+                hop = hop_expr(ltensor, rtensor, [mpo_now[imps]], shape)
+                func = integrand_func_factory(
+                    shape, hop, islast, S_inv, True, coef,
+                    ovlp_inv1=S_L_inv_list[imps + 1],
+                    ovlp_inv0=S_L_inv_list[imps], ovlp0=S_L_list[imps])
+                hop_y[imps] = func(0, mps[imps].reshape(-1))[mask_idx_list[imps]]
+            return torch.cat(hop_y)
+
+        init_y = torch.cat([mps[i].reshape(-1)[mask_idx_list[i]]
+                            for i in range(mps.site_num)])
+        sol = solvers.solve_ivp(func_vmf, (0, evolve_dt), init_y,
+                                rtol=config.ivp_rtol, atol=config.ivp_atol)
+        for imps in range(mps.site_num):
+            mps[imps] = _masked_to_site(sol.y[position[imps]:position[imps + 1]],
+                                        mask_idx_list[imps], qn_mask_list[imps].shape)
+        _retype(mps, narrow)
+        logger.info(f"{config.method} VMF func called: {sol.nfev}. "
+                    f"RKF steps: {sol.nsteps}")
+
+        if config.vmf_auto_switch and sw_min_list:
+            sw_min = _smallest(sw_min_list)
+            if (sw_min > np.sqrt(config.reg_epsilon * 10.0)
+                    and mps.evolve_config.method == EvolveMethod.tdvp_mu_vmf):
+                logger.debug(f"sw.min={sw_min}, switch to tdvp_vmf")
+                mps.evolve_config.method = EvolveMethod.tdvp_vmf
+            elif (sw_min < config.reg_epsilon
+                    and mps.evolve_config.method == EvolveMethod.tdvp_vmf):
+                logger.debug(f"sw.min={sw_min}, switch to tdvp_mu_vmf")
+                mps.evolve_config.method = EvolveMethod.tdvp_mu_vmf
+        return mps.canonicalise()
+
+    @adaptive_tdvp
+    def _evolve_tdvp_mu_cmf(self, mpo, evolve_dt) -> "Mps":
+        """TDVP constant mean field with the matrix-unfolding
+        regularization, second order through midpoint environments
+        (reference ``mps.py:1096-1265``).  Each site but the last integrates
+        its own equation of motion by RKF45 in the environments of the
+        midpoint state; the last site (no projector) by Lanczos
+        (``ivp_solver="krylov"``) or RKF45.
+
+        The JAX package factorizes each right unfolding with the host
+        ``svd_qn``; the port takes ``trunc_device.compress_factors``, as
+        MU-VMF does, with no host round trip per site beyond the spectrum.
+        The factors enter only through ``u diag(s)`` and ``diag(1/reg(s))
+        u^H``, and ``u diag(s) diag(1/reg(s)) u^H`` does not change under
+        the unitary freedom of the SVD (a phase or rotation within a block
+        of equal singular values), so the evolved state is the JAX
+        package's; real Grams then reach the Jacobi kernel."""
+        if not np.iscomplex(evolve_dt) or self.is_complex:
+            mpo = _complex_mpo_twin(mpo)
+        config = self.evolve_config
+        if config.tdvp_cmf_c_trapz:
+            assert config.tdvp_cmf_midpoint
+        imag_time = np.iscomplex(evolve_dt)
+        if imag_time:
+            evolve_dt = -evolve_dt.imag
+            coef = -1
+        else:
+            coef = 1j
+
+        self.ensure_left_canonical()
+        mps = self.copy() if imag_time else self.to_complex()
+
+        if config.tdvp_cmf_midpoint:
+            orig_config = config.copy()
+            self.evolve_config.tdvp_cmf_midpoint = False
+            self.evolve_config.tdvp_cmf_c_trapz = False
+            self.evolve_config.adaptive = False
+            environ_mps = self.evolve(mpo, evolve_dt / 2)
+            # the half step ran on the mutated config; read the flags below
+            # from the restored one
+            self.evolve_config = config = orig_config
+        else:
+            environ_mps = mps.copy()
+
+        if config.tdvp_cmf_c_trapz:
+            loop = 2
+            mps[-1] = environ_mps[-1]
+        else:
+            loop = 1
+
+        last = mps.site_num - 1
+        while loop > 0:
+            environ = Environ(environ_mps, mpo, "L")
+            cmf_rk_steps = []
+            S_L_list, S_L_inv_list = _left_overlaps(environ_mps, config.force_ovlp)
+            for imps in mps.iter_idx_list(full=True):
+                shape = list(mps[imps].shape)
+                ltensor = environ.read("L", imps - 1)
+                if imps == last:
+                    if loop == 1:
+                        rtensor = torch.ones((1, 1, 1), dtype=mps[0].dtype,
+                                             device=mps[0].device)
+                        hop = hop_expr(ltensor, rtensor, [mpo[imps]], shape)
+                        S_inv = torch.eye(1, dtype=mps[0].dtype, device=mps[0].device)
+                        func = integrand_func_factory(
+                            shape, hop, True, S_inv, True, coef,
+                            ovlp_inv1=S_L_inv_list[imps + 1],
+                            ovlp_inv0=S_L_inv_list[imps], ovlp0=S_L_list[imps])
+                        if config.ivp_solver == "krylov":
+                            # func = (hermitian action) / coef; fold coef into
+                            # dt so the Lanczos operator stays hermitian
+                            ms, j = solvers.expm_krylov(
+                                lambda y: coef * func(0, y), evolve_dt / coef,
+                                mps[imps].reshape(-1))
+                            cmf_rk_steps.append(int(j))
+                        else:
+                            sol = solvers.solve_ivp(
+                                func, (0, evolve_dt), mps[imps].reshape(-1),
+                                rtol=config.ivp_rtol, atol=config.ivp_atol)
+                            ms = sol.y
+                            cmf_rk_steps.append(sol.nfev)
+                        mps[imps] = ms.reshape(shape)
+                    if loop == 1 and config.tdvp_cmf_c_trapz:
+                        break
+                    continue
+
+                rtensor, S_inv, _ = _mu_gauge_step(environ, environ_mps, mpo, imps,
+                                                   config.reg_epsilon)
+                hop = hop_expr(ltensor, rtensor, [mpo[imps]], shape)
+                func = integrand_func_factory(
+                    shape, hop, False, S_inv, True, coef,
+                    ovlp_inv1=S_L_inv_list[imps + 1],
+                    ovlp_inv0=S_L_inv_list[imps], ovlp0=S_L_list[imps])
+                # SciPy's default tolerances, as the reference
+                sol = solvers.solve_ivp(func, (0, evolve_dt), mps[imps].reshape(-1))
+                cmf_rk_steps.append(sol.nsteps)
+                mps[imps] = sol.y.reshape(shape)
+
+            if cmf_rk_steps:
+                logger.debug(f"{config.method} CMF steps: max {max(cmf_rk_steps)}")
+            if loop == 2:
+                environ_mps = mps
+                evolve_dt /= 2.0
+            loop -= 1
+        return mps
+
 
 def normalize(tn, kind):
     """Normalization of an MPS (reference ``mps.py:2025-2059``)."""
@@ -815,6 +1224,238 @@ def _normalize_mpo_t(mpo):
     if callable(mpo):
         return mpo
     raise TypeError(f"unsupported mpo type: {mpo}")
+
+
+# --- VMF/CMF helpers ---------------------------------------------------------
+
+def _retype(mp, dtype):
+    """Cast every site of ``mp`` to ``dtype``, in place."""
+    mp.dtype = dtype
+    for i in range(mp.site_num):
+        mp[i] = mp[i]
+
+
+def _double_mpo_twin(mpo):
+    """Cached double-precision twin of an MPO (itself in double precision)."""
+    wide = _double(mpo[0]).dtype
+    if mpo[0].dtype == wide:
+        return mpo
+    twin = getattr(mpo, "_double_twin", None)
+    if twin is None:
+        twin = mpo.copy()
+        _retype(twin, wide)
+        mpo._double_twin = twin
+    return twin
+
+
+def _site_masks(mps):
+    """Static quantum-number masks of every site (host), the flat indices
+    they keep (device, uploaded once per step) and the sites' offsets in
+    the flat coefficient vector.  Leaves ``mps.qnidx`` at the last site."""
+    qn_mask_list, mask_idx_list, position = [], [], [0]
+    for imps in range(mps.site_num):
+        mps.move_qnidx(imps)
+        _, _, qnmat = mps._get_big_qn([imps])
+        qn_mask = get_qn_mask(qnmat, mps.qntot)
+        qn_mask_list.append(qn_mask)
+        mask_idx_list.append(backend.tensor(np.nonzero(qn_mask.ravel())[0]))
+        position.append(position[-1] + int(np.sum(qn_mask)))
+    return qn_mask_list, mask_idx_list, position
+
+
+def _masked_to_site(c: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
+    """Scatter a qn-masked flat vector back into the dense site tensor
+    (``cvec2cmat`` with the kept indices already on the device: a boolean
+    mask, or an upload, would make every right-hand side wait for it)."""
+    full = torch.zeros(int(np.prod(shape)), dtype=c.dtype, device=c.device)
+    full[idx] = c
+    return full.reshape(shape)
+
+
+def _left_overlaps(mps, force_ovlp: bool):
+    """With ``force_ovlp``: the left overlaps ``S_L`` of every bond (unity
+    for a left-canonical state) and their inverses, by ``torch.linalg.eigh``;
+    otherwise lists of ``None``."""
+    if not force_ovlp:
+        return [None] * (mps.site_num + 1), [None] * (mps.site_num + 1)
+    S_L_list = [torch.ones((1, 1), dtype=mps[0].dtype, device=mps[0].device)]
+    for imps in range(mps.site_num):
+        S_L_list.append(transferMat(mps, None, "L", imps, S_L_list[imps]))
+    S_L_inv_list = []
+    for S_L in S_L_list:
+        w, u = torch.linalg.eigh(S_L)
+        S_L_inv_list.append((u * (1.0 / w)[None, :]) @ u.mH)
+    return S_L_list, S_L_inv_list
+
+
+def _mu_gauge_step(environ, environ_mps, mpo, imps, reg_epsilon):
+    """One step of the matrix-unfolding gauge sweep (right to left): factor
+    the right unfolding of site ``imps + 1`` of ``environ_mps`` as
+    ``u diag(s) v^T`` (``trunc_device.compress_factors``, exact), keep
+    ``v^T`` there and its right environment, and carry ``u diag(s)`` into
+    site ``imps``.  Returns that environment with ``u diag(s)`` on its ket
+    leg, the regularized inverse ``(u^* diag(1/reg(s)))^T`` and ``min(s)``
+    (a host float: the singular values are on the host already)."""
+    qnbigl, qnbigr, _ = environ_mps._get_big_qn([imps + 1])
+    u, s, _, v, _, qnrset = trunc_device.compress_factors(
+        environ_mps[imps + 1], qnbigl, qnbigr, environ_mps.qntot, "R")
+    environ_mps[imps + 1] = v.T.reshape(environ_mps[imps + 1].shape)
+    rtensor = environ.GetLR("R", imps + 1, environ_mps, mpo, method="System")
+    s_dev = backend.tensor(s, dtype=u.real.dtype)
+    us = u * s_dev[None, :].to(u.dtype)
+    rtensor = torch.tensordot(rtensor, us, dims=([2], [1]))
+    environ_mps[imps] = torch.tensordot(environ_mps[imps], us,
+                                        dims=([environ_mps[imps].ndim - 1], [0]))
+    environ_mps.qn[imps + 1] = np.array(qnrset)
+    environ_mps.qnidx = imps
+    regular_s = _mu_regularize(s_dev, epsilon=reg_epsilon)
+    S_inv = (u.conj() * (1.0 / regular_s)[None, :].to(u.dtype)).T
+    return rtensor, S_inv, float(np.min(s))
+
+
+def _smallest(values) -> float:
+    """The least of host floats and 0-d device tensors, with one read of
+    the device ones."""
+    host = [v for v in values if not isinstance(v, torch.Tensor)]
+    dev = [v for v in values if isinstance(v, torch.Tensor)]
+    res = min(host, default=np.inf)
+    if dev:
+        res = min(res, float(torch.stack(dev).min()))
+    return res
+
+
+def projector(ms, left: bool, Ovlp_inv1=None, Ovlp0=None):
+    """Tangent-space projector ``1 - |ms><ms|``, optionally in a
+    non-orthogonal metric (reference ``mps.py:1819-1846``)."""
+    last = ms.ndim - 1
+    if Ovlp_inv1 is None:
+        dims = ([last], [last]) if left else ([0], [0])
+        proj = torch.tensordot(ms, ms.conj(), dims=dims)
+    elif left:
+        proj = torch.tensordot(Ovlp0, ms, dims=([1], [0]))
+        proj = torch.tensordot(proj, Ovlp_inv1, dims=([last], [0]))
+        proj = torch.tensordot(proj, ms.conj(), dims=([last], [last]))
+    else:
+        proj = torch.tensordot(ms, Ovlp0, dims=([last], [0]))
+        proj = torch.tensordot(Ovlp_inv1, proj, dims=([1], [0]))
+        proj = torch.tensordot(proj, ms.conj(), dims=([0], [0]))
+    sz = int(np.prod(ms.shape[:-1])) if left else int(np.prod(ms.shape[1:]))
+    eye = torch.eye(sz, dtype=proj.dtype, device=proj.device).reshape(proj.shape)
+    return eye - proj
+
+
+def integrand_func_factory(shape, hop, islast, S_inv, left: bool, coef,
+                           ovlp_inv1=None, ovlp_inv0=None, ovlp0=None):
+    """Equation-of-motion right-hand side of one site in VMF/CMF evolution
+    (reference ``mps.py:1849-1889``), for 3-leg (MPS) and 4-leg (MpDm)
+    sites.  The JAX package's ``jit_compile`` has no counterpart: PyTorch
+    runs it eagerly."""
+
+    def func(t, y):
+        y0 = y.reshape(shape)
+        HC = hop(y0)
+        if not islast:
+            proj = projector(y0, left, ovlp_inv1, ovlp0)
+            if y0.ndim == 3:
+                if left:
+                    HC = torch.tensordot(proj, HC, dims=([2, 3], [0, 1]))
+                else:
+                    HC = torch.tensordot(HC, proj, dims=([1, 2], [2, 3]))
+            elif y0.ndim == 4:
+                if left:
+                    HC = torch.tensordot(proj, HC, dims=([3, 4, 5], [0, 1, 2]))
+                else:
+                    HC = torch.tensordot(HC, proj, dims=([1, 2, 3], [3, 4, 5]))
+        last = HC.ndim - 1
+        if left:
+            if ovlp_inv0 is not None:
+                HC = torch.tensordot(ovlp_inv0, HC, dims=([1], [0]))
+            return torch.tensordot(HC, S_inv.to(HC.dtype), dims=([last], [0])).reshape(-1) / coef
+        if ovlp_inv0 is not None:
+            HC = torch.tensordot(HC, ovlp_inv0, dims=([last], [1]))
+        return torch.tensordot(S_inv.to(HC.dtype), HC, dims=([0], [0])).reshape(-1) / coef
+
+    return func
+
+
+def transferMat(mps, mpsconj, domain, imps, val):
+    """One-site transfer-matrix update (reference ``mps.py:1892-1923``)."""
+    ms = mps[imps]
+    ms_conj = mpsconj[imps] if mpsconj is not None else ms.conj()
+    if ms.ndim == 3:
+        if domain == "R":
+            val = torch.tensordot(ms_conj, val, dims=([2], [0]))
+            val = torch.tensordot(val, ms, dims=([1, 2], [1, 2]))
+        elif domain == "L":
+            val = torch.tensordot(ms_conj, val, dims=([0], [0]))
+            val = torch.tensordot(val, ms, dims=([0, 2], [1, 0]))
+        else:
+            raise AssertionError
+    elif ms.ndim == 4:
+        if domain == "R":
+            val = torch.tensordot(ms_conj, val, dims=([3], [0]))
+            val = torch.tensordot(val, ms, dims=([1, 2, 3], [1, 2, 3]))
+        elif domain == "L":
+            val = torch.tensordot(ms_conj, val, dims=([0], [0]))
+            val = torch.tensordot(val, ms, dims=([0, 3, 1], [1, 0, 2]))
+        else:
+            raise AssertionError
+    else:
+        raise ValueError(f"local mps ndim incorrect: {ms.ndim}")
+    return val
+
+
+def _mu_regularize(s, epsilon=1e-10):
+    """Regularized singular values of the reduced density matrix,
+    ``s + sqrt(eps) exp(-s / sqrt(eps))`` (reference ``mps.py:1926-1931``)."""
+    epsilon = np.sqrt(epsilon)
+    return s + epsilon * torch.exp(-s / epsilon)
+
+
+# --- shared environments of ``Mps.expectations`` ----------------------------
+
+def _construct_freq_environ(mpos_hash, hash_to_obj, mps, domain: str, mps_conj):
+    """Environments of the MPO site prefixes (``"L"``) or suffixes (``"R"``)
+    that appear more than once (reference ``mps.py:2103-2146``)."""
+    assert domain in ("L", "R")
+    counter = Counter()
+    for mpo_hash in mpos_hash:
+        for i in range(1, len(mpo_hash) + 1):
+            seq = mpo_hash[:i] if domain == "L" else tuple(reversed(mpo_hash[-i:]))
+            counter.update([tuple(seq)])
+
+    most_common = sorted(counter.items(), key=lambda x: (-x[1], len(x[0])))
+    hash_list, matrices_list = [], []
+    for hashes, n in most_common:
+        if n == 1:
+            break
+        if len(mps) < len(matrices_list):
+            break
+        hash_list.append(hashes)
+        matrices_list.append([hash_to_obj[h] for h in hashes])
+
+    result = {(): torch.ones((1, 1, 1), dtype=mps[0].dtype, device=mps[0].device)}
+    for m_hashes, matrices in zip(hash_list, matrices_list):
+        environ = result[tuple(m_hashes[:-1])]
+        idx = len(matrices) - 1 if domain == "L" else -len(matrices)
+        result[tuple(m_hashes)] = contract_one_site(
+            environ, mps[idx], matrices[-1], domain=domain, ms_conj=mps_conj[idx])
+    return result
+
+
+def _get_freq_environ(environ_dict, mpo_hash, domain, max_length):
+    """The longest cached environment of this MPO's prefixes or suffixes,
+    and the site it ends at (reference ``mps.py:2149-2169``)."""
+    assert domain in ("L", "R")
+    it = mpo_hash if domain == "L" else list(reversed(mpo_hash))
+    hashes = []
+    for key in it:
+        hashes.append(key)
+        if tuple(hashes) not in environ_dict or max_length < len(hashes):
+            hashes.pop()
+            break
+    i = len(hashes) - 1 if domain == "L" else len(mpo_hash) - len(hashes)
+    return environ_dict[tuple(hashes)], i
 
 
 class BraKetPair:

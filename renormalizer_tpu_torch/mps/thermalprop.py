@@ -5,7 +5,6 @@ Port of ``renormalizer_tpu/mps/thermalprop.py`` (reference
 the step propagator is chosen once at construction as a strategy callable,
 and per-step observables are recorded through a small declarative table.
 All numerics run in the device engine layers (``mps/``, ``ops/``, ``lib/``).
-``properties`` takes ``None`` only: ``property/`` is not ported yet.
 """
 
 import logging
@@ -40,8 +39,8 @@ class ThermalProp(TdMpsJob):
         exact: use the analytic local propagator of a non-interacting H
             instead of generic MPO time evolution.
         space: exact-propagator subspace, ``"GS"`` or ``"EX"``.
-        properties: ``None``; a ``Property`` collector needs ``property/``,
-            which the port does not carry yet.
+        properties: optional :class:`~renormalizer_tpu_torch.property.Property`
+            evaluated on every accepted step.
         auto_expand: pre-expand bond dimension before TDVP evolution.
     """
 
@@ -60,10 +59,6 @@ class ThermalProp(TdMpsJob):
     ):
         if space not in ("GS", "EX"):
             raise ValueError(f"unknown exact-propagator space: {space!r}")
-        if properties is not None:
-            raise NotImplementedError(
-                "properties= needs renormalizer_tpu_torch.property, "
-                "which is not ported yet")
         self.init_mpdm: MpDm = init_mpdm.canonicalise()
         model = h_mpo_model if h_mpo_model is not None else self.init_mpdm.model
         self.h_mpo = Mpo(model)
@@ -71,6 +66,7 @@ class ThermalProp(TdMpsJob):
         self.exact = exact
         self.space = space
         self.auto_expand = auto_expand
+        self.properties = properties
         # one step function chosen up front; both share the signature
         # (state, evolve_dt) -> new state
         self._step = self._step_exact if exact else self._step_mpo
@@ -103,6 +99,8 @@ class ThermalProp(TdMpsJob):
         self._records["vn_entropy"].append(mps.calc_bond_entropy())
         n_electron = self._records["e_occupations"][-1].sum()
         logger.info(f"thermal step: E = {energy}, sum(n_e) = {n_electron}")
+        if self.properties is not None:
+            self.properties.calc_properties(mps)
 
     def evolve_single_step(self, evolve_dt):
         return self._step(self.latest_mps, evolve_dt)
@@ -156,6 +154,8 @@ class ThermalProp(TdMpsJob):
             "phonon occupations array": self.ph_occupations_array.tolist(),
             "vn entropy array": self.vn_entropy_array.tolist(),
         }
+        if self.properties is not None:
+            out.update(self.properties.prop_res)
         return out
 
 

@@ -66,11 +66,29 @@ def _solve_lh(lmat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(lmat.mH, q, upper=True, left=False)
 
 
+def _double(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in double precision (itself when it already is)."""
+    return x.to(torch.complex128 if x.is_complex() else torch.float64)
+
+
+def _qr(z: torch.Tensor):
+    """Economy Householder QR of ``z``, computed in double precision.  In
+    single precision the QR returns NaN on a column whose entries reach the
+    underflow range: in fp32 a relaxed start state of a nearly undisplaced
+    mode (the band-limit charge diffusion of ``tests/test_apps.py``,
+    displacement 1e-10) carries coefficients from 1 down to 1e-43, and both
+    LAPACK's and cuSOLVER's QR turned ``[[-1, 6e-10], [0, 0], [4e-31 -
+    2.4e-43j, 0]]`` and a rank-1 (4, 3) block with rows of 1e-3, 1e-16 and
+    1e-20 into NaN.  The JAX package's XLA flushes subnormals on its own."""
+    q, r = torch.linalg.qr(_double(z), mode="reduced")
+    return q.to(z.dtype), r.to(z.dtype)
+
+
 def _orth(z: torch.Tensor) -> torch.Tensor:
     """Orthonormal columns by Householder QR; rank-deficient directions are
     completed with arbitrary orthonormal columns, which is what the
     complement states need.  Batched over leading dims."""
-    return torch.linalg.qr(z, mode="reduced")[0]
+    return _qr(z)[0]
 
 
 def _colnormalize(y: torch.Tensor) -> torch.Tensor:
@@ -93,11 +111,15 @@ def lam_to_sigma(lam) -> np.ndarray:
 
 def gram_eigh(g: torch.Tensor):
     """Ascending eigenpairs of a Hermitian Gram matrix or stack: real goes
-    to the Jacobi kernel, complex to ``torch.linalg.eigh`` (counted)."""
+    to the Jacobi kernel, complex to ``torch.linalg.eigh`` (counted), in
+    double precision: in complex64 cuSOLVER's eigh did not converge on a
+    Gram of the band-limit charge diffusion on an H100 (entries from 1 down
+    to the underflow range; see ``_qr``)."""
     global LINALG_EIGH_GRAMS
     if g.is_complex():
         LINALG_EIGH_GRAMS += 1 if g.ndim == 2 else g.shape[0]
-        return torch.linalg.eigh(g)
+        w, v = torch.linalg.eigh(_double(g))
+        return w.to(g.real.dtype), v.to(g.dtype)
     return jacobi_eigh(g)
 
 
@@ -208,7 +230,7 @@ def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen):
     # zero-sigma columns proper orthonormal completions and the phase of
     # R's diagonal restores the U <-> V pairing
     t = a.mH @ u
-    qv, rv = torch.linalg.qr(_colnormalize(t), mode="reduced")
+    qv, rv = _qr(_colnormalize(t))
     d = torch.diagonal(rv)
     tiny = torch.finfo(lam.dtype).tiny
     phase = torch.where(d.abs() > tiny, d / torch.clamp(d.abs(), min=tiny),
@@ -327,6 +349,34 @@ def apply_selection(coef_array, parts, sidx, m: int, n: int, system: str,
     return site, compms
 
 
+def _spread_zero_weight(sigma: np.ndarray, qn_list) -> np.ndarray:
+    """Descending order of the candidates, with the zero-weight ones spread
+    over the sectors: each next zero-weight slot goes to the sector with the
+    most zero-weight candidates left (its room: min(rows, columns) of its
+    block less its nonzero candidates and the slots already ahead of it),
+    ties to the earlier sector.
+
+    A cut through the zeros (the padding of ``expand_bond_dimension``) then
+    keeps padding in every sector up to its room.  Ordered by the sort alone,
+    the exact zeros of the Gram eigh stay in sector order and one sector
+    takes all the padding: on a 2-molecule chain at its exact bond
+    dimension the sum with the state then held 9 states of one sector where
+    its rows allow 8, and the next canonicalisation dropped one (15 of 16)."""
+    order = np.argsort(-sigma, kind="stable")
+    zero = sigma[order] <= 0
+    if not zero.any():
+        return order
+    labels = [tuple(np.atleast_1d(q)) for q in qn_list]
+    queues = {}
+    for i in order[zero]:
+        queues.setdefault(labels[i], []).append(i)
+    tail = []
+    while len(tail) < int(zero.sum()):
+        lab = max(queues, key=lambda lab: len(queues[lab]))
+        tail.append(queues[lab].pop(0))
+    return np.concatenate([order[~zero], np.array(tail, dtype=order.dtype)])
+
+
 def compress_factors(coef_array, qnbigl, qnbigr, qntot, system: str):
     """Exact qn-blocked SVD factors, API-compatible with
     ``svd_qn(..., full_matrices=False)``: ``(u, sigma, qnl_list, v, sigma,
@@ -339,7 +389,7 @@ def compress_factors(coef_array, qnbigl, qnbigr, qntot, system: str):
     parts, sigma, qn_kept, parts_v = candidates(
         coef_array, qnbigl, qnbigr, qntot, system, min(m, n),
         want_complement=False, want_v=True)
-    order = np.argsort(-sigma, kind="stable")
+    order = _spread_zero_weight(sigma, qn_kept)
     sigma = sigma[order]
     sel = torch.as_tensor(order, device=parts[0].device)
     a_side = torch.cat(parts, dim=1)[:, sel]
@@ -377,10 +427,10 @@ def qr_qn_device(coef_array, qnbigl, qnbigr, qntot, system: str):
         k = min(len(lset), len(rset))
         if system == "R":
             # RQ via QR of the flipped transpose (same as the host path)
-            q, r = torch.linalg.qr(block.flip(0, 1).T, mode="reduced")
+            q, r = _qr(block.flip(0, 1).T)
             pu, pv = r.flip(0, 1).T, q.flip(0, 1)
         else:
-            q, r = torch.linalg.qr(block, mode="reduced")
+            q, r = _qr(block)
             pu, pv = q, r.T
         u_out = torch.zeros((m, k), dtype=cmat.dtype, device=cmat.device)
         v_out = torch.zeros((n, k), dtype=cmat.dtype, device=cmat.device)

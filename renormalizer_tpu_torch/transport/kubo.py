@@ -10,8 +10,7 @@ average is realized by splitting :math:`e^{-\beta H}` symmetrically and
 evolving two branches in real time.  With a Peierls part present, four
 correlation components :math:`\langle J_a(t) J_b(0)\rangle` are collected.
 Port of ``renormalizer_tpu/transport/kubo.py`` (reference
-``renormalizer/transport/kubo.py``).  ``properties`` takes ``None`` only:
-``property/`` is not ported yet.
+``renormalizer/transport/kubo.py``).
 """
 
 import logging
@@ -78,10 +77,6 @@ class TransportKubo(TdMpsJob):
                  thermal_dump_path: str = None, properties=None):
         if temperature == 0:
             raise ValueError("Can't set temperature to 0.")
-        if properties is not None:
-            raise NotImplementedError(
-                "properties= needs renormalizer_tpu_torch.property, "
-                "which is not ported yet")
         self.model = model
         self.temperature = temperature
         self.h_mpo = Mpo(model)
@@ -113,6 +108,7 @@ class TransportKubo(TdMpsJob):
             thermal_dump_path = os.path.join(dump_dir, job_name + "_impdm.npz")
         self.thermal_dump_path = thermal_dump_path
 
+        self.properties = properties
         self._auto_corr = []
         self._auto_corr_decomposition = []
         super().__init__(evolve_config=evolve_config, dump_dir=dump_dir,
@@ -166,6 +162,8 @@ class TransportKubo(TdMpsJob):
         # minus sign: j was taken real above, so the true current is i*j
         if self.j_oper2 is None:
             self._auto_corr.append(-mps.ft)
+            if self.properties is not None:
+                self.properties.calc_properties_braketpair(mps)
             return
         (bra, ket1), (_, ket2) = mps
         comps = [
@@ -209,4 +207,6 @@ class TransportKubo(TdMpsJob):
             "auto correlation decomposition": self.auto_corr_decomposition,
             "mobility": self.calc_mobility()[1],
         }
+        if self.properties is not None:
+            out.update(self.properties.prop_res)
         return out

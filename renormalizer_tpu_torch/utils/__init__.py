@@ -13,6 +13,7 @@ from renormalizer_tpu_torch.utils.utils import (
     sizeof_fmt,
     cached_property,
     calc_vn_entropy,
+    calc_vn_entropy_dm,
 )
 from renormalizer_tpu_torch.utils import log
 from renormalizer_tpu_torch.utils.tdmps import TdMpsJob

@@ -3,6 +3,7 @@
 from typing import List, Union
 
 import numpy as np
+import scipy.linalg
 
 
 def sizeof_fmt(num, suffix="B"):
@@ -34,3 +35,11 @@ def calc_vn_entropy(p: Union[np.ndarray, List[float]]) -> float:
     p = p / p.sum()
     p = p[0 < p]
     return float(-(p * np.log(p)).sum())
+
+
+def calc_vn_entropy_dm(dm: np.ndarray) -> float:
+    """Von Neumann entropy from a (possibly unraveled) density matrix."""
+    dim = int(np.prod(dm.shape[: dm.ndim // 2]))
+    w = scipy.linalg.eigh(np.asarray(dm).reshape(dim, dim), eigvals_only=True)
+    w = np.where(w < 0, 0, w)
+    return calc_vn_entropy(w)

@@ -197,9 +197,20 @@ def test_kubo_thermal_state_is_cached(tmp_path):
 
 
 def test_kubo_rejects_properties():
-    with pytest.raises(NotImplementedError, match="property"):
-        ttransport.TransportKubo(holstein2(rt, tm), rt.Quantity(0.5, "a.u."),
-                                 properties=object())
+    """``properties=`` is taken now (the name is kept from when it raised):
+    a ``Property`` collector records one transition amplitude per recorded
+    step of the real-time evolution, and the dump carries it."""
+    from renormalizer_tpu_torch.property import Property
+
+    model = holstein2(rt, tm)
+    occupation = rt.Mpo(model, rt.Op(r"a^\dagger a", model.e_dofs[0]))
+    prop = Property(["n0"], {"n0": occupation})
+    kubo = ttransport.TransportKubo(model, rt.Quantity(0.5, "a.u."), insteps=2,
+                                    properties=prop)
+    kubo.evolve(evolve_dt=0.5, nsteps=2)
+    assert len(prop.prop_res["n0"]) == len(kubo.evolve_times) == 3
+    assert all(np.isfinite(complex(v)) for v in prop.prop_res["n0"])
+    assert kubo.get_dump_dict()["n0"] is prop.prop_res["n0"]
 
 
 @pytest.mark.slow
@@ -354,11 +365,10 @@ def test_spectra_exact_finite_t_against_dense_oracle(spectratype):
 def test_kubo_tdvp_against_dense_oracle():
     """The port alone, TDVP-PS in both imaginary and real time on the
     2-molecule chain at its exact bond dimension (16), against the dense
-    Liouville oracle of ``tests/test_apps.py:437-464``.  The JAX package
-    reproduces the oracle here to 1e-13; the port's own thermal state keeps
-    15 of the 16 states of the middle bond (``expand_bond_dimension`` picks
-    its zero-weight padding by the order of tied singular values, which
-    differs between a host SVD and the Gram eigh), so C(t) is 1.3e-5 off."""
+    Liouville oracle of ``tests/test_apps.py:437-464``.  The thermal state
+    keeps the JAX package's bond dimensions (all 16 states of the middle
+    bond: ``compress_factors`` spreads the zero-weight padding of the
+    expansion over the sectors), and C(t) is exact, as the JAX package's."""
     model = holstein2(rt, tm)
     temperature = rt.Quantity(0.5, "a.u.")
     kubo = ttransport.TransportKubo(
@@ -385,5 +395,5 @@ def test_kubo_tdvp_against_dense_oracle():
         phase = np.exp(1j * energies * t)
         oracle.append(-np.trace(rho_e @ ((phase[:, None] * j_e) * np.conj(phase)[None, :]) @ j_e))
     oracle = np.array(oracle)
-    assert kubo.latest_mps.bra_mps.bond_dims[2] == 15
-    assert np.abs(kubo.auto_corr - oracle).max() < 3e-5 * abs(oracle[0])
+    assert kubo.latest_mps.bra_mps.bond_dims == [1, 4, 16, 4, 1]
+    assert np.abs(kubo.auto_corr - oracle).max() < 1e-9 * abs(oracle[0])

@@ -78,7 +78,8 @@ def test_port_runs_without_jax():
 
 def _port_sources():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    paths = [os.path.join(repo, "chip_smoke.py"), os.path.join(repo, "energy_witness.py")]
+    paths = [os.path.join(repo, name) for name in
+             ("chip_smoke.py", "energy_witness.py", "vmf_precision_probe.py")]
     for root, dirs, files in os.walk(os.path.join(repo, "renormalizer_tpu_torch")):
         if "_build" in dirs:
             dirs.remove("_build")  # build output, not source
@@ -87,8 +88,9 @@ def _port_sources():
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
-    """Every import statement of the port, the chip smoke script and the
-    energy witness, read from the syntax tree."""
+    """Every import statement of the port, the chip smoke script, the
+    energy witness and the MU-VMF precision probe, read from the syntax
+    tree."""
     paths = _port_sources()
     assert len(paths) > 30
     for path in paths:

@@ -286,9 +286,16 @@ def test_thermal_state_dump_and_load(tmp_path):
 
 
 def test_thermal_prop_argument_checks():
+    """The argument checks, and ``properties=``, which is taken now: a
+    ``Property`` collector fills one entry per recorded step."""
+    from renormalizer_tpu_torch.property import Property
+
     rho = MpDm.max_entangled_ex(MODEL)
-    with pytest.raises(NotImplementedError, match="property"):
-        ThermalProp(rho, properties=object())
+    prop = Property(["e_rdm"], {})
+    tp = ThermalProp(rho.copy(), exact=False, properties=prop)
+    tp.evolve(None, 2, -0.1j)
+    assert len(prop.prop_res["e_rdm"]) == len(tp.evolve_times) == 3
+    assert np.trace(prop.prop_res["e_rdm"][-1]).real == pytest.approx(1.0, abs=1e-8)
     with pytest.raises(ValueError, match="space"):
         ThermalProp(rho, space="XX")
     tp = ThermalProp(rho, exact=True)
