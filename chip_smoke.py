@@ -17,7 +17,10 @@ Phases (any failure exits non-zero):
      the DMRG path's shapes (2, 288, 288) and (1, 544, 544), the evolution
      path's (1, 48, 48) and the Kubo path's (1, n, n), n = 106, 8, 2, 25, f32,
      the kernel, the plain version and torch.linalg.eigh timed in turns, the
-     sweeps each timed solve took, and the kernel's bound;
+     sweeps each timed solve took, and the kernel's bound (the plain version
+     in one call per shape, without a warm-up: seconds a call at the widest
+     shapes, no yardstick); and phase 12's widest and most frequent shapes
+     (EXCITED_PATH_GRAMS);
   4. main path: 2-site DMRG of the 6-molecule Holstein chain (18 sites) at
      M=256 in fp32, through Mps.random / Mpo / optimize_mps; the energy must be
      within 1e-6 of 0.11503887 and the truncation's Gram eigh must have gone
@@ -83,11 +86,33 @@ Phases (any failure exits non-zero):
      Jacobi kernel inside the time loop, every launch recorded (none at the
      sweep cap, every shape in THERMAL_PATH_GRAMS, every Gram solved again by
      torch.linalg.eigh inside phase 3's f32 tolerances), launches per step
-     printed.
+     printed.  A Gram shape of phases 6(d), 9 and 10 that phase 3 did not
+     hold is held against the plain version on the path's own Grams.
+ 11. the excited-state slice on the JAX package's test models against dense
+     oracles, in fp32 (EXCITED_BOUNDS: tests/test_mps.py's and
+     tests/test_apps.py's bounds, two of them set by a CPU fp32 rehearsal):
+     state-averaged DMRG of 2 roots, omega-targeted DMRG, the arpack, lobpcg
+     and primme eigensolvers, TDA, VSCF, vibronic dynamics, SpectraZtCV and
+     SpectraFtCV (absorption 1- and 2-site, emission);
+ 12. at the bench chain's full width (18 sites, fp32): (a) state-averaged
+     2-site DMRG of 2 roots at M=64 against the JAX package's CPU fp64
+     energies (SA_REF, within SA_TOL; root 1 above root 0), seconds per
+     sweep; (b) SpectraZtCV absorption at M=64 (ground state by
+     procedure_gs up to M=64), 1-site, eta 0.05 eV, 2.50/2.60/2.70 eV
+     through batch_run(freqs, 1, obj), at most 8 sweeps each: every response
+     finite, > 0 and converged to rtol; seconds per frequency and per sweep,
+     CG iterations per site; then batch_run(freqs, 3, obj) from the same
+     start (one interleaved worker per frequency), timed and within 1e-4 of
+     the serial loop.  Each path's Jacobi launches are counted from 0
+     (launches_by_path state_averaged_dmrg and cv_zerot), none may reach
+     the sweep cap, every one is solved again by torch.linalg.eigh inside
+     phase 3's tolerances, those of a shape phase 3 did not hold also by
+     the plain version, and no Gram may go around the kernel.
 A [summary] line repeats the run's times as JSON, so that the end of the
 output carries them, with the seconds of each phase and of the whole script.  The line before the last holds the kernel record as
 JSON (with the launches of each path: DMRG, SpinBosonDynamics,
-TransportKubo, ChargeDiffusionDynamics, the MU-VMF ThermalProp); the last
+TransportKubo, ChargeDiffusionDynamics, the MU-VMF ThermalProp,
+state-averaged DMRG, SpectraZtCV); the last
 line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
@@ -150,6 +175,10 @@ THERMAL_PATH_GRAMS = {4: (2, 6, 8, 14, 16, 18, 19, 20, 21, 23, 24, 25, 26, 27, 2
                          30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 43, 44,
                          51, 52, 58, 64, 71),
                       8: (2, 26, 27, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 64)}
+# (batch, n) of phase 12's f32 Grams that phase 3 holds: the widest sector
+# block of the state-averaged density matrix (384), the correction vector's
+# widest (160), and the batched shapes the two paths solve most often
+EXCITED_PATH_GRAMS = ((1, 384), (1, 160), (2, 64), (2, 96))
 # <H> drift allowed in phase 10(b)-(c), relative to max(1, |E|): a CPU fp32
 # rehearsal (3 molecules, M=16, three steps of 20 a.u.) drifts by 2.0e-8 with
 # MU-VMF and 3.3e-8 with TDVP-PS2; the bound of phase 6 leaves a factor of
@@ -159,6 +188,20 @@ CHARGE_ENERGY_DRIFT = 5e-5
 # |C - C_dense| / |C(0)|
 THERMAL_STEPS = 20
 SPECTRA_RTOL = 1e-5
+# phase 11's bounds: those of tests/test_mps.py and tests/test_apps.py
+# (fp64), except where a CPU fp32 rehearsal of the same runs
+# (RENO_PLATFORM=cpu RENO_DTYPE=fp32)
+# could not meet them: omega-targeted DMRG 1e-8 (fp32: 1.34e-7, the
+# rounding of <H> ~ 1) and arpack 1e-7 (fp32: 2.53e-6), set here to 1e-6
+# and 1e-5
+EXCITED_BOUNDS = dict(nroots=1e-6, omega=1e-6, arpack=1e-5, tda=2e-3, lobpcg=1e-5,
+                      vscf=1e-6, vibronic=1e-3, cv_zerot=1e-3, cv_finitet=1e-4)
+# phase 12(a): the two roots of state-averaged 2-site DMRG of the bench
+# chain at M=64, procedure [[64, 0.4], [64, 0.2]] + [[64, 0]] * 4, from
+# Mps.random(model, 1, 64, percent=1.0), by the JAX package on the CPU in
+# fp64 (its last sweep)
+SA_REF = (0.11503893096837466, 0.11551480196055311)
+SA_TOL = 1e-5
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): FP32 outside the
 # tensor cores, HBM3 bandwidth
 FP32_FLOPS = 67e12
@@ -175,13 +218,15 @@ def check(cond, msg):
         fail(msg)
 
 
-def cuda_times_in_turns(fns, reps):
+def cuda_times_in_turns(fns, reps, warm=None):
     """Median milliseconds of each ``fns[name]()`` by CUDA events, after one
-    warm-up each; the functions take turns, ``reps[name]`` times each."""
+    warm-up each of those in ``warm`` (default: all); the functions take
+    turns, ``reps[name]`` times each."""
     import torch
 
-    for fn in fns.values():
-        fn()
+    for name, fn in fns.items():
+        if warm is None or name in warm:
+            fn()
     torch.cuda.synchronize()
     times = {name: [] for name in fns}
     for i in range(max(reps.values())):
@@ -261,7 +306,8 @@ def _eigh_errors(a, w, v):
 
     a3, w2, v3 = (a, w, v) if a.ndim == 3 else (a[None], w[None], v[None])
     ad, wd, vd = a3.double(), w2.double(), v3.double()
-    norm = torch.linalg.matrix_norm(ad)[:, None]
+    # an all-zero Gram (an empty sector block) has exact zero errors
+    norm = torch.clamp(torch.linalg.matrix_norm(ad)[:, None], min=1e-300)
     err_w = float(((wd - torch.linalg.eigvalsh(ad)).abs() / norm).max())
     eye = torch.eye(a3.shape[-1], dtype=torch.float64, device=a.device)
     err_o = float((vd.mT @ vd - eye).abs().max())
@@ -312,6 +358,8 @@ def phase_kernels():
                      | set(THERMAL_PATH_GRAMS[size]))
         cases += [((1, n, n), dt, 8000 + n) for n in new
                   if size == 8 or n not in held]
+    # phase 12's widest and most frequent shapes that no earlier case holds
+    cases += [((b, n, n), torch.float32, 9000 + 10 * n + b) for b, n in EXCITED_PATH_GRAMS]
     main_err = None
     for shape, dt, seed in cases:
         a = _symmetric(rng if seed is None else np.random.default_rng(seed),
@@ -370,13 +418,18 @@ def phase_kernels():
         a = _symmetric(rng if shape[-1] == 288
                        else np.random.default_rng(10 * shape[-1]),
                        shape, torch.float32)
+        plain_out = []
+        # the plain version is timed in one call, without a warm-up: it is
+        # seconds a call at the widest shapes and no yardstick
         ms = cuda_times_in_turns({
             "kernel": lambda: jacobi_eigh(a),
             "torch.linalg.eigh": lambda: torch.linalg.eigh(a),
-            "plain": lambda: jacobi_eigh_reference(a)},
-            {"kernel": 10, "torch.linalg.eigh": 10, "plain": 3})
+            "plain": lambda: plain_out.append(
+                jacobi_eigh_reference(a, return_sweeps=True))},
+            {"kernel": 10, "torch.linalg.eigh": 10, "plain": 1},
+            warm=("kernel", "torch.linalg.eigh"))
         sweeps = jacobi_eigh(a, return_sweeps=True)[2].tolist()
-        sweeps_p = jacobi_eigh_reference(a, return_sweeps=True)[2].tolist()
+        sweeps_p = plain_out[0][2].tolist()
         capped = sum(s >= cap for s in sweeps + sweeps_p)
         bound, bound_by = jacobi_bound_ms(shape[0], shape[-1], 4)
         print(f"[kernel] {shape} f32 median ms: kernel {ms['kernel']:.3f} "
@@ -447,26 +500,41 @@ class GramRecord:
         check(at_cap == 0, f"{tag} {at_cap} launches ran to the sweep cap")
         return hist
 
-    def check_against_plain(self, tag, tol):
-        """Every kept Gram, with the eigenpairs the kernel gave the path,
-        against the plain version on the same Gram (one batch per n): both
-        inside the phase-3 tolerances (relative to ||A||_F), and their
-        eigenvalues within twice the eigenvalue tolerance of each other."""
+    def check_against_plain(self, tag, tol, only=None):
+        """Every kept Gram (or those of the (n, itemsize) in ``only``), with
+        the eigenpairs the kernel gave the path, against the plain version on
+        the same Gram (one batch per padded size,
+        ``jacobi_eigh_reference_stacks``): both inside the phase-3
+        tolerances (relative to ||A||_F, grown as n / 288 past n = 288 in
+        f32), and their eigenvalues within twice the eigenvalue tolerance of
+        each other."""
         import torch
 
-        from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh_reference
+        from renormalizer_tpu_torch.ops.jacobi import (
+            jacobi_eigh_reference_stacks, padded_size)
 
+        groups = collections.defaultdict(list)
+        for (n, size), kept in sorted(self.kept.items()):
+            if only is None or (n, size) in only:
+                groups[(padded_size(n), size)].append(
+                    [torch.cat(parts) for parts in zip(*kept)])
         worst, count = 0.0, 0
-        for (n, _), kept in sorted(self.kept.items()):
-            g, w, v = (torch.cat(parts) for parts in zip(*kept))
-            w_p, v_p = jacobi_eigh_reference(g)
-            _check_eigh(f"{tag} n={n} kernel", _eigh_errors(g, w, v), tol)
-            _check_eigh(f"{tag} n={n} plain", _eigh_errors(g, w_p, v_p), tol)
-            scale = torch.linalg.matrix_norm(g)[:, None]
-            err = float(((w - w_p).abs() / scale).max())
-            check(err < 2 * tol["eig"], f"{tag} n={n}: kernel and plain "
-                  f"eigenvalues differ by {err:.2e}·|A|")
-            worst, count = max(worst, err), count + len(g)
+        for group in groups.values():
+            plain = jacobi_eigh_reference_stacks([g for g, _, _ in group])
+            for (g, w, v), (w_p, v_p) in zip(group, plain):
+                n = g.shape[-1]
+                # phase 3's rule: f32 tolerances grow as n / 288 past n = 288
+                grow = max(1.0, n / 288) if g.dtype == torch.float32 else 1.0
+                tol_n = {k: t * grow for k, t in tol.items()}
+                _check_eigh(f"{tag} n={n} kernel", _eigh_errors(g, w, v), tol_n)
+                _check_eigh(f"{tag} n={n} plain", _eigh_errors(g, w_p, v_p), tol_n)
+                # in f64: an all-zero Gram has exact zero eigenvalues
+                scale = torch.clamp(torch.linalg.matrix_norm(g.double())[:, None],
+                                    min=1e-300)
+                err = float(((w - w_p).abs() / scale).max())
+                check(err < 2 * tol_n["eig"], f"{tag} n={n}: kernel and plain "
+                      f"eigenvalues differ by {err:.2e}·|A|")
+                worst, count = max(worst, err), count + len(g)
         print(f"{tag} the path's own {count} Grams: kernel (as the path got "
               f"it) and plain inside the phase-3 tolerances; largest "
               f"|w - w_plain| {worst:.2e}·|A|", flush=True)
@@ -644,13 +712,14 @@ def phase_oracle(nsteps=10, dt=0.2):
           "[oracle] spin-boson: non-finite result")
 
 
-def holstein_chain(levels):
-    """The bench.py chain: 6 molecules x 2 modes of ``levels`` levels."""
+def holstein_chain(levels, dipole=None):
+    """The bench.py chain: 6 molecules x 2 modes of ``levels`` levels (with
+    a transition dipole for the spectra)."""
     from renormalizer_tpu_torch import HolsteinModel, Mol, Phonon, Quantity
 
     ph_list = [Phonon.simple_phonon(Quantity(w, "cm-1"), Quantity(d), levels)
                for w, d in zip([106.51, 1555.55], [30.1370, 8.7729])]
-    mol = Mol(Quantity(2.67, "eV"), ph_list)
+    mol = Mol(Quantity(2.67, "eV"), ph_list, dipole)
     return HolsteinModel([mol] * 6, Quantity(-0.1, "eV"))
 
 
@@ -774,8 +843,8 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
     hist = grams.report(tag[:10], launches)
     if (nph, m_small) == (31, 48):
         unheld = sorted(set(hist) - {(1, n) for n in EVOLVE_PATH_GRAMS})
-        check(not unheld, f"{tag}: Gram shapes {unheld} are not among the "
-              f"phase-3 cases (EVOLVE_PATH_GRAMS)")
+        print(f"{tag} Gram shapes that phase 3 did not hold (EVOLVE_PATH_GRAMS): "
+              f"{unheld}", flush=True)
     grams.check_against_plain(tag[:10], gram_tol)
     check(elsewhere == 0, f"{tag}: {elsewhere} real Gram eigh went around the kernel")
     check(not job.latest_mps.is_complex, f"{tag}: the start state is complex")
@@ -1028,11 +1097,9 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
           f"{elsewhere}", flush=True)
     check(launches > 0, f"{tag}: the job never launched the Jacobi kernel")
     check(elsewhere == 0, f"{tag}: {elsewhere} real Gram eigh went around the kernel")
-    hist = grams.report("[kubo]", launches)
-    unheld = sorted(set(hist) - {(1, n) for n in KUBO_PATH_GRAMS})
+    grams.report("[kubo]", launches)
     if m == 64:
-        check(not unheld, f"{tag}: Gram shapes {unheld} are not among the phase-3 "
-              f"cases (KUBO_PATH_GRAMS)")
+        _hold_unheld("[kubo]", grams, {(1, n, 4) for n in KUBO_PATH_GRAMS}, gram_tol)
     grams.check_against_library("[kubo]", gram_tol)
 
     pairs = kubo.latest_mps
@@ -1230,12 +1297,23 @@ def _record_constructor(tag, build):
     return job, seconds, launches, grams
 
 
-def _check_held(tag, grams, launches, held):
-    """Report a GramRecord and fail on a launch at the sweep cap or on a
-    (batch, n, dtype) that phase 3 did not hold."""
-    hist = grams.report(tag, launches)
+def _hold_unheld(tag, grams, held, tol):
+    """The path's own Grams of every (batch, n, itemsize) that phase 3 did
+    not hold, against the plain version (``GramRecord.check_against_plain``),
+    so that every shape the path solves is held against it."""
     unheld = sorted(set(grams.shapes()) - set(held))
-    check(not unheld, f"{tag}: Gram shapes {unheld} are not among the phase-3 cases")
+    print(f"{tag} Gram shapes that phase 3 did not hold: {unheld}", flush=True)
+    if unheld:
+        grams.check_against_plain(tag + " (shapes phase 3 did not hold)", tol,
+                                  only={(n, size) for _, n, size in unheld})
+
+
+def _check_held(tag, grams, launches, held, tol):
+    """Report a GramRecord (failing on a launch at the sweep cap) and hold
+    the Grams of every shape phase 3 did not hold against the plain
+    version."""
+    hist = grams.report(tag, launches)
+    _hold_unheld(tag, grams, held, tol)
     return hist
 
 
@@ -1266,7 +1344,7 @@ def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
             model, compress_config=CompressConfig(CompressCriteria.fixed, max_bonddim=m),
             evolve_config=EvolveConfig(method), stop_at_edge=False))
         _check_held(f"[vmf {key}]", grams, launches,
-                    {(1, n, 4) for n in CHARGE_PATH_GRAMS})
+                    {(1, n, 4) for n in CHARGE_PATH_GRAMS}, gram_tol)
         grams.check_against_library(f"[vmf {key}]", gram_tol)
         check(not job.latest_mps.is_complex and max(job.latest_mps.bond_dims) == m,
               f"{tag}: start state {job.latest_mps.bond_dims}")
@@ -1340,7 +1418,8 @@ def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
     check(all(n > 0 for n in steps.launches),
           f"{tag}: a time step launched the Jacobi kernel {steps.launches} times")
     _check_held("[vmf d]", grams, launches,
-                {(1, n, size) for size, ns in THERMAL_PATH_GRAMS.items() for n in ns})
+                {(1, n, size) for size, ns in THERMAL_PATH_GRAMS.items() for n in ns},
+                gram_tol)
     grams.check_against_library("[vmf d]", gram_tol)
     corr = {k: float(np.real(v[-1])) for k, v in prop.prop_res.items() if k != "e_rdm"}
     print(f"{tag}: energies {np.round(tp.energies, 6).tolist()}; e_rdm diagonal "
@@ -1352,6 +1431,278 @@ def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
     if profile:
         phase_profile_step(card, "[vmf d]", lambda: tp.evolve(None, 1, beta / thermal_div / 1j))
     return by_path, timed
+
+
+def phase_excited_oracles():
+    """Phase 11: the excited-state and correction-vector slice on the JAX
+    package's test models against dense oracles, in fp32, with the bounds of
+    tests/test_mps.py and tests/test_apps.py, or EXCITED_BOUNDS where a CPU
+    fp32 rehearsal of the same runs showed fp32 cannot meet them."""
+    import numpy as np
+    import scipy.linalg
+
+    from renormalizer_tpu_torch import (
+        HolsteinModel, Model, Mol, Mpo, Mps, Op, OptimizeConfig, Phonon, Quantity)
+    from renormalizer_tpu_torch.cv import SpectraFtCV, SpectraZtCV
+    from renormalizer_tpu_torch.model import BasisHalfSpin, BasisSHO
+    from renormalizer_tpu_torch.mps import TDA
+    from renormalizer_tpu_torch.mps.gs import construct_mps_mpo, optimize_mps
+    from renormalizer_tpu_torch.utils import constant
+    from renormalizer_tpu_torch.vibration import Vscf
+    from renormalizer_tpu_torch.vibronic import VibronicModelDynamics
+
+    def report(tag, err, bound):
+        print(f"[excited] {tag}: {err:.3e} (bound {bound:.0e})", flush=True)
+        check(np.isfinite(err) and err < bound, f"[excited] {tag}: {err} >= {bound}")
+
+    # tests/fixtures.py's exact_model: 3 molecules, 2-level phonons, J = 1
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
+    h = dense_operator(model, model.ham_terms).real
+    sector = np.nonzero(_sector_of(model, len(h)) == 1)[0]
+    w1 = np.linalg.eigvalsh(h[np.ix_(sector, sector)])
+    mps, mpo = construct_mps_mpo(model, 16, 1)
+    mps.optimize_config.procedure = [[8, 0.4], [16, 0.2], [16, 0], [16, 0], [16, 0]]
+    mps.optimize_config.nroots = 2
+    energies, roots = optimize_mps(mps.copy(), mpo)
+    report("state-averaged DMRG, 2 roots, |E - E_dense|",
+           float(np.abs(np.array(sorted(energies[-1])) - w1[:2]).max()),
+           EXCITED_BOUNDS["nroots"])
+    check(len(roots) == 2, "[excited] nroots: not one MPS per root")
+    mps = Mps.random(model, 1, 24)
+    mps.optimize_config = OptimizeConfig(
+        procedure=[[24, 0.4], [24, 0.2], [24, 0.1], [24, 0], [24, 0], [24, 0]])
+    _, opt = optimize_mps(mps, Mpo(model), omega=w1[1] + 0.02)
+    report("omega-targeted DMRG, |<H> - E_1|",
+           abs(float(opt.expectation(Mpo(model))) - w1[1]), EXCITED_BOUNDS["omega"])
+    mps = Mps.random(model, 1, 16)
+    mps.optimize_config = OptimizeConfig(procedure=[[16, 0.4], [16, 0.2], [16, 0], [16, 0]])
+    mps.optimize_config.algo = "arpack"
+    energies, _ = optimize_mps(mps, Mpo(model))
+    report("arpack DMRG, |E - 0.3361574408|", abs(min(energies) - 0.3361574408),
+           EXCITED_BOUNDS["arpack"])
+    mps, mpo = construct_mps_mpo(model, 16, 1)
+    mps.optimize_config.procedure = [[8, 0.4], [16, 0.2], [16, 0], [16, 0]]
+    _, gs_mps = optimize_mps(mps.copy(), mpo)
+    e_tda = TDA(model, mpo, gs_mps, nroots=3).kernel()
+    report("TDA, |E - E_dense| of the two lowest",
+           float(np.abs(e_tda[:2] - w1[1:3]).max()), EXCITED_BOUNDS["tda"])
+
+    # tests/fixtures.py's 3-molecule Holstein model (GS_E regression)
+    j_matrix = np.array([[0.0, -0.1, -0.2], [-0.1, 0.0, -0.3],
+                         [-0.2, -0.3, 0.0]]) / constant.au2ev
+    ph_list = [Phonon([w, w], [Quantity(0), d], 4) for w, d in
+               zip([Quantity(106.51, "cm^{-1}"), Quantity(1555.55, "cm^{-1}")],
+                   [Quantity(30.1370, "a.u."), Quantity(8.7729, "a.u.")])]
+    fixture = HolsteinModel([Mol(Quantity(2.67, "eV"), ph_list, 15.45)] * 3, j_matrix)
+    gs_e = 0.08401412 + fixture.gs_zpe
+    for algo in ("lobpcg", "primme"):
+        mps = Mps.random(fixture, 1, 10, percent=1.0)
+        mps.optimize_config.procedure = [[10, 0.4], [20, 0.2], [30, 0.1], [40, 0], [40, 0]]
+        mps.optimize_config.algo = algo
+        energies, _ = optimize_mps(mps.copy(), Mpo(fixture))
+        report(f"{algo} DMRG, |E - GS_E| / GS_E", abs(min(energies) - gs_e) / gs_e,
+               EXCITED_BOUNDS["lobpcg"])
+
+    basis = [BasisSHO("v0", 1.0, 8), BasisSHO("v1", 0.5, 8)]
+    scf = Vscf(Model(basis, Op("p^2", "v0", 0.5) + Op("x^2", "v0", 0.5)
+                     + Op("p^2", "v1", 0.5) + Op("x^2", "v1", 0.5 * 0.25)))
+    scf.kernel(nsweeps=5)
+    report("VSCF modal gaps", max(np.abs(np.diff(scf.e[0][:4]) - 1.0).max(),
+                                  np.abs(np.diff(scf.e[1][:4]) - 0.5).max()),
+           EXCITED_BOUNDS["vscf"])
+    terms = (Op("sigma_z", "e", 0.5) + Op("p^2", "v", 0.5) + Op("x^2", "v", 0.5)
+             + Op("sigma_x", "e") * Op("x", "v") * 0.2)
+    vib = Model([BasisHalfSpin("e"), BasisSHO("v", 1.0, 4)], terms)
+    job = VibronicModelDynamics(vib, init_condition={"e": 0, "v": 0})
+    job.evolve(0.2, 4)
+    hv = dense_operator(vib, vib.ham_terms)
+    report("vibronic autocorrelation at 2t", max(
+        abs(scipy.linalg.expm(-1j * hv * t)[0, 0] - ac)
+        for t, ac in zip(job.autocorr_time, job.autocorr_array)), EXCITED_BOUNDS["vibronic"])
+
+    # tests/test_apps.py's correction-vector dimer
+    eta = 0.05
+    ph = Phonon.simple_phonon(Quantity(1.0), Quantity(0.4), 2)
+    dimer = HolsteinModel([Mol(Quantity(1.0), [ph], 1.0)] * 2, Quantity(0.2))
+    hd = dense_operator(dimer, dimer.ham_terms).real
+    qn = _sector_of(dimer, len(hd))
+    procedure = [0.4, 0.2, 0.1, 0] + [0] * 10
+
+    def mu(op):
+        return dense_operator(dimer, [Op(op, d, 1.0) for d in dimer.e_dofs]).real
+
+    s0 = np.nonzero(qn == 0)[0]
+    w0, v0 = np.linalg.eigh(hd[np.ix_(s0, s0)])
+    gs_vec = np.zeros(len(hd))
+    gs_vec[s0] = v0[:, 0]
+    ket = mu(r"a^\dagger") @ gs_vec
+    cv = SpectraZtCV(dimer, "abs", m_max=16, eta=eta, procedure_cv=procedure)
+    for omega in (1.05, 1.5):
+        a = hd - (w0[0] + omega) * np.eye(len(hd)) + 1j * eta * np.eye(len(hd))
+        oracle = -1 / np.pi * np.imag(ket @ np.linalg.solve(a, ket))
+        res = cv.cv_solve(omega)
+        report(f"SpectraZtCV omega {omega}, relative", abs(res - oracle) / abs(oracle),
+               EXCITED_BOUNDS["cv_zerot"])
+    temperature = Quantity(0.5, "a.u.")
+    beta = temperature.to_beta()
+    e_all, v_all = np.linalg.eigh(hd)
+    gaps = e_all[:, None] - e_all[None, :]
+    for tag, kwargs, op, sector, freqs in (
+            ("abs", dict(spectratype="abs"), r"a^\dagger", 0, (1.05, 1.5)),
+            ("emi", dict(spectratype="emi", insteps=50), "a", 1, (-1.05, -1.5)),
+            ("abs 2-site", dict(spectratype="abs", method="2site"), r"a^\dagger", 0,
+             (1.05, 1.5))):
+        sidx = np.nonzero(qn == sector)[0]
+        rho = np.zeros_like(hd)
+        rho[np.ix_(sidx, sidx)] = scipy.linalg.expm(-beta / 2 * hd[np.ix_(sidx, sidx)])
+        rho /= np.linalg.norm(rho)
+        b = v_all.T @ (mu(op) @ rho) @ v_all
+        cv = SpectraFtCV(dimer, m_max=16, eta=eta, temperature=temperature,
+                         procedure_cv=procedure, **kwargs)
+        for omega in freqs:
+            oracle = eta / np.pi * np.sum(np.abs(b) ** 2 / ((omega - gaps) ** 2 + eta ** 2))
+            res = cv.cv_solve(omega)
+            report(f"SpectraFtCV {tag} omega {omega}, relative",
+                   abs(res - oracle) / oracle, EXCITED_BOUNDS["cv_finitet"])
+
+
+def phase_excited_jobs(card, gram_tol, m=64):
+    """Phase 12, at the bench chain's full width (18 sites, fp32): (a)
+    state-averaged 2-site DMRG of 2 roots at M=m against the JAX package's
+    CPU fp64 energies (SA_REF, SA_TOL); (b) SpectraZtCV absorption, its
+    ground state by procedure_gs up to M=m, 1-site, eta 0.05 eV, three
+    frequencies through batch_run(freqs, 1, obj), at most 8 sweeps each:
+    every response finite, > 0 and converged to rtol, and the interleaved
+    batch_run(freqs, 3, obj) from the same start within 1e-4 of it.  Every
+    Jacobi launch of (a) and (b) is recorded (the (batch, n) histogram, none
+    at the sweep cap) and solved again by torch.linalg.eigh inside phase
+    3's tolerances; a shape phase 3 did not hold also by the plain
+    version."""
+    import numpy as np
+
+    from renormalizer_tpu_torch import Mpo, Mps, Quantity
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.cv import SpectraZtCV
+    from renormalizer_tpu_torch.cv.spectra_cv import batch_run
+    from renormalizer_tpu_torch.lib import solvers
+    from renormalizer_tpu_torch.mps import gs, trunc_device
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+
+    model = holstein_chain(6)
+    mpo = Mpo(model)
+    launches, seconds = {}, {}
+
+    def recorded(tag, run):
+        grams = GramRecord(keep_grams=True)
+        trunc_device.jacobi_eigh = grams
+        try:
+            jacobi_eigh.launches = 0
+            trunc_device.LINALG_EIGH_GRAMS = 0
+            backend.sync()
+            t0 = time.perf_counter()
+            out = run()
+            backend.sync()
+            wall = time.perf_counter() - t0
+            count = jacobi_eigh.launches
+            complex_grams = trunc_device.LINALG_EIGH_GRAMS
+        finally:
+            trunc_device.jacobi_eigh = jacobi_eigh
+        grams.report(tag, count)
+        grams.check_against_library(tag, gram_tol)
+        _hold_unheld(tag, grams, {(b, n, 4) for b, n in EXCITED_PATH_GRAMS}, gram_tol)
+        check(count > 0, f"{tag} never launched the Jacobi kernel")
+        check(complex_grams == 0, f"{tag} {complex_grams} Gram eigh went around the kernel")
+        return out, wall, count
+
+    # (a)
+    mps = Mps.random(model, 1, m, percent=1.0)
+    mps.optimize_config.procedure = [[m, 0.4], [m, 0.2]] + [[m, 0]] * 4
+    mps.optimize_config.method = "2site"
+    mps.optimize_config.nroots = 2
+    sweep_times = []
+    single_sweep = gs.single_sweep
+
+    def timed_sweep(*args, **kwargs):
+        backend.sync()
+        t0 = time.perf_counter()
+        out = single_sweep(*args, **kwargs)
+        backend.sync()
+        sweep_times.append(time.perf_counter() - t0)
+        return out
+
+    gs.single_sweep = timed_sweep
+    try:
+        (energies, roots), wall, count = recorded(
+            "[excited a]", lambda: gs.optimize_mps(mps, mpo))
+    finally:
+        gs.single_sweep = single_sweep
+    final = sorted(energies[-1])
+    print(f"[excited a] root energies per sweep {energies}", flush=True)
+    print(f"[excited a] {len(sweep_times)} sweeps, seconds per sweep ({card}) "
+          f"{[round(t, 4) for t in sweep_times]}; total {wall:.2f} s; jacobi "
+          f"launches {count}; roots {final}, reference {SA_REF}, diff "
+          f"{[f'{a - b:+.3e}' for a, b in zip(final, SA_REF)]}", flush=True)
+    check(all(abs(a - b) < SA_TOL for a, b in zip(final, SA_REF)),
+          f"[excited a] roots {final} not within {SA_TOL} of {SA_REF}")
+    check(final[1] > final[0], "[excited a] root 1 does not lie above root 0")
+    check(len(roots) == 2 and all(_all_finite(r) for r in roots), "[excited a] bad roots")
+    launches["state_averaged_dmrg"] = count
+    seconds["state_averaged_dmrg_sweeps"] = sweep_times
+    seconds["state_averaged_dmrg_root_diffs"] = [a - b for a, b in zip(final, SA_REF)]
+
+    # (b)
+    ev = Quantity(1, "eV").as_au()
+    freqs = [2.50 * ev, 2.60 * ev, 2.70 * ev]
+    procedure_cv = [0.4, 0.2, 0.1, 0, 0, 0, 0, 0]
+    solve_log = []
+    cg0 = {}
+
+    def run_cv():
+        t0 = time.perf_counter()
+        cv = SpectraZtCV(holstein_chain(6, dipole=1.0), "abs", m_max=m,
+                         eta=0.05 * ev, h_mpo=mpo,
+                         procedure_cv=procedure_cv,
+                         procedure_gs=[[16, 0.4], [32, 0.2], [m, 0.1], [m, 0], [m, 0]])
+        backend.sync()
+        setup = time.perf_counter() - t0
+        fresh.append(cv.clone_for_batch())
+        cg0.update(solvers.CG_COUNTS)
+        out = batch_run(freqs, 1, cv)
+        solve_log.extend(cv.solve_log)
+        return out, setup
+
+    fresh = []
+    (responses, setup), wall, count = recorded("[excited b]", run_cv)
+    cg_solves = solvers.CG_COUNTS["solves"] - cg0["solves"]
+    cg_iters = solvers.CG_COUNTS["iterations"] - cg0["iterations"]
+    sweeps = sum(n for _, n, _ in solve_log)
+    per_freq = (wall - setup) / len(freqs)
+    print(f"[excited b] responses {responses} at {[round(f, 6) for f in freqs]} a.u.; "
+          f"(sweeps, converged) per frequency {[(n, c) for _, n, c in solve_log]}; "
+          f"{wall:.2f} s in all ({card}), {setup:.2f} s ground state and b, "
+          f"{per_freq:.2f} s per frequency, {per_freq * len(freqs) / max(sweeps, 1):.2f} "
+          f"s per sweep; CG iterations per site {cg_iters / max(cg_solves, 1):.2f} "
+          f"({cg_iters} in {cg_solves} site solves); jacobi launches {count}", flush=True)
+    check(all(np.isfinite(r) and r > 0 for r in responses),
+          f"[excited b] responses {responses}")
+    check(all(c for _, _, c in solve_log), "[excited b] a frequency did not converge")
+    # the same points with one interleaved worker each, from the same start
+    backend.sync()
+    t0 = time.perf_counter()
+    interleaved = batch_run(freqs, len(freqs), fresh[0])
+    backend.sync()
+    wall_i = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(interleaved, responses))
+    print(f"[excited b] batch_run with {len(freqs)} interleaved workers: {wall_i:.2f} s "
+          f"({card}) against {wall - setup:.2f} s for the serial loop; responses "
+          f"{interleaved}, largest relative difference from the serial loop "
+          f"{rel:.2e} (bound 1e-4, the convergence rtol's reach)", flush=True)
+    check(rel < 1e-4, f"[excited b] interleaved batch_run off by {rel}")
+    seconds["cv_zerot_serial_and_interleaved"] = [wall - setup, wall_i]
+    launches["cv_zerot"] = count
+    seconds["cv_zerot_per_frequency"] = per_freq
+    return launches, seconds
 
 
 def phase_profile_step(card, tag, step):
@@ -1476,6 +1827,8 @@ def main():
     timed("10a", phase_vmf_oracles)
     vmf_launches, vmf_s = timed("10b-d", phase_vmf_jobs, card, profile, record["tol_f32"],
                                 dts={"b": 1.0, "c": 20.0})
+    timed("11", phase_excited_oracles)
+    excited_launches, excited_s = timed("12", phase_excited_jobs, card, record["tol_f32"])
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -1486,6 +1839,13 @@ def main():
         "kubo_thermal_step_seconds": [round(t, 4) for t in thermal_s],
         "kubo_timed_step_seconds": [round(t, 4) for t in kubo_s],
         "vmf_timed_step_seconds": {k: [round(t, 4) for t in v] for k, v in vmf_s.items()},
+        "state_averaged_dmrg_sweep_seconds": [
+            round(t, 4) for t in excited_s["state_averaged_dmrg_sweeps"]],
+        "cv_zerot_seconds_per_frequency": round(excited_s["cv_zerot_per_frequency"], 4),
+        "state_averaged_dmrg_root_diffs": [
+            f"{d:+.3e}" for d in excited_s["state_averaged_dmrg_root_diffs"]],
+        "cv_zerot_serial_and_interleaved_seconds": [
+            round(t, 4) for t in excited_s["cv_zerot_serial_and_interleaved"]],
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
@@ -1493,12 +1853,14 @@ def main():
         "phase_seconds": phase_s,
         "script_seconds": round(time.perf_counter() - _T0, 1)}), flush=True)
     by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
-               "transport_kubo": kubo_launches, **vmf_launches}
+               "transport_kubo": kubo_launches, **vmf_launches, **excited_launches}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
           f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
           f"constructor {kubo_launches}, ChargeDiffusionDynamics (b)-(c) "
           f"{vmf_launches['charge_diffusion']}, MU-VMF ThermalProp (d) "
-          f"{vmf_launches['thermal_vmf']}", flush=True)
+          f"{vmf_launches['thermal_vmf']}, state-averaged DMRG (12a) "
+          f"{excited_launches['state_averaged_dmrg']}, SpectraZtCV (12b) "
+          f"{excited_launches['cv_zerot']}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,

@@ -1,17 +1,23 @@
-r"""Iterative solvers of the local problems: Davidson for DMRG, Lanczos
+r"""Iterative solvers of the local problems: the Davidson family for DMRG
+and TDA, LOBPCG, the correction vector's conjugate gradient, Lanczos
 ``expm`` and the one-site TDVP-PS site visit for time evolution, and the
 adaptive RKF45 ``solve_ivp`` of the VMF/CMF schemes.
 
-Port of ``_davidson_core``/``davidson_fused``, ``_lanczos_expm``,
-``expm_krylov``/``expm_krylov_fused``, ``tdvp_ps_site_fused`` and
-``solve_ivp`` (``renormalizer_tpu/lib/solvers.py:105-310, 559-960``).  The
-JAX package fuses the Davidson loop into one ``lax.while_loop``; PyTorch
-runs eagerly, so the loop is a Python loop whose convergence test reads one
-scalar per iteration — a few microseconds on a local card.  The trial basis
-is a fixed (S, N) workspace with thick restart; the S x S subspace eigh is
+Port of ``davidson``/``_davidson_core``/``davidson_fused`` (with the
+workspace budget and its host spill), ``davidson_multiroot``,
+``davidson_host``, ``_lanczos_expm``, ``expm_krylov``/``expm_krylov_fused``,
+``tdvp_ps_site_fused`` and ``solve_ivp``
+(``renormalizer_tpu/lib/solvers.py:47-960``), of the
+``jax.experimental.sparse.linalg.lobpcg_standard`` and
+``jax.scipy.sparse.linalg.cg`` that the JAX package calls.  The JAX package
+fuses each loop into one ``lax.while_loop``; PyTorch runs eagerly, so each
+loop is a Python loop whose convergence test reads one scalar per
+iteration, a few microseconds on a local card.  The Davidson trial basis is
+a fixed (S, N) workspace with thick restart; the S x S subspace eigh is
 ``torch.linalg.eigh``.
 """
 
+import os
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -25,6 +31,36 @@ from renormalizer_tpu_torch.ops.contract import (
 )
 
 _OUT_OF_SECTOR = 1e10
+
+# --- Davidson workspace budget ----------------------------------------------
+# The trial basis is two (S, N) panels.  A byte budget (``RENO_DAVIDSON_WS_
+# BYTES``; default 4 GiB on the card, none on the CPU) shrinks S first (the
+# thick restart keeps a small workspace convergent, only slower); below the
+# minimal workspace the basis spills to host RAM and only the matvec stays
+# on the device (reference ``renormalizer/lib/davidson/davidson.py:515-560``).
+
+_MIN_DEVICE_SPACE = 4
+
+
+def _davidson_ws_budget() -> float:
+    env = os.environ.get("RENO_DAVIDSON_WS_BYTES")
+    if env:
+        return float(env)
+    from renormalizer_tpu_torch.backend import backend
+
+    return 4 * 2 ** 30 if backend.device.type == "cuda" else float("inf")
+
+
+def _budgeted_max_space(max_space: int, n: int, itemsize: int) -> int:
+    """Largest workspace <= ``max_space`` whose two (S, N) panels fit the
+    budget; 0 means even the minimal device workspace does not (spill)."""
+    budget = _davidson_ws_budget()
+    if budget == float("inf"):
+        return max_space
+    cap = int(budget // (2 * n * itemsize))
+    if cap < _MIN_DEVICE_SPACE:
+        return 0
+    return min(max_space, cap)
 
 
 def _davidson_core(hop, x0: torch.Tensor, hdiag: torch.Tensor, tol: float,
@@ -73,28 +109,233 @@ def _davidson_core(hop, x0: torch.Tensor, hdiag: torch.Tensor, tol: float,
     return theta, x, max_cycle
 
 
+def davidson(hop: Callable, x0: torch.Tensor, hdiag: torch.Tensor,
+             tol: float = 1e-10, max_cycle: int = 100, max_space: int = 12):
+    """Lowest eigenpair of the hermitian operator ``hop`` on flat vectors.
+    Returns ``(theta, x, niter)``.  A closure cannot spill (there is no
+    formula to run on the host's basis), so over budget it runs with the
+    minimal workspace."""
+    space = _budgeted_max_space(max_space, int(x0.numel()), x0.element_size())
+    return _davidson_core(hop, x0, hdiag, tol, max_cycle,
+                          space or _MIN_DEVICE_SPACE)
+
+
+def _two_layer_cmo(operands):
+    # (L, W1, W1[, W2, W2], R) -> [W1[, W2]]
+    return list(operands[1:-1:2])
+
+
 def davidson_fused(formula: str, operands, cshape, x0_full: torch.Tensor,
                    mask: torch.Tensor, inverse: float = 1.0, tol: float = 1e-10,
-                   max_cycle: int = 100, max_space: int = 12):
+                   max_cycle: int = 100, max_space: int = 12,
+                   twolayer: bool = False):
     """qn-masked Davidson in the FULL local space.
 
     ``einsum(formula, *operands, c)`` is the effective-H matvec, with
-    ``operands = (L, W..., R)``; ``mask`` is the flat boolean quantum-number
-    mask.  The diagonal preconditioner is built here from the same
-    operands.  The returned ritz vector has shape ``cshape``, is zero
-    outside the sector and carries the gauge "largest element positive"."""
+    ``operands = (L, W..., R)`` (each W twice with ``twolayer``); ``mask``
+    is the flat boolean quantum-number mask.  The diagonal preconditioner is
+    built here from the same operands.  The returned ritz vector has shape
+    ``cshape``, is zero outside the sector and carries the gauge "largest
+    element positive".  Over the workspace budget the trial space shrinks,
+    and below the minimal workspace the host-spilled Davidson runs
+    (``niter`` -1)."""
+    cmo = _two_layer_cmo(operands) if twolayer else list(operands[1:-1])
+    hdiag_full = hop_diag(operands[0], operands[-1], cmo, twolayer)
+    hdiag = torch.where(mask, hdiag_full.reshape(-1) * inverse, _OUT_OF_SECTOR)
+    x0 = torch.where(mask, x0_full.reshape(-1), 0)
+    space = _budgeted_max_space(max_space, x0.numel(), x0.element_size())
+    if space == 0:
+        return _davidson_spilled(formula, operands, cshape, x0, hdiag,
+                                 inverse, tol, max_cycle)
 
     def hop(vec):
         # the MPO and the environments are exactly qn-block-sparse, so H of
         # a masked vector is exactly zero outside the sector
         return einsum(formula, *operands, vec.reshape(cshape)).reshape(-1) * inverse
 
-    hdiag_full = hop_diag(operands[0], operands[-1], list(operands[1:-1]))
-    hdiag = torch.where(mask, hdiag_full.reshape(-1) * inverse, _OUT_OF_SECTOR)
-    x0 = torch.where(mask, x0_full.reshape(-1), 0)
-    theta, x, it = _davidson_core(hop, x0, hdiag, tol, max_cycle, max_space)
+    theta, x, it = _davidson_core(hop, x0, hdiag, tol, max_cycle, space)
     x = x / torch.sign(x[torch.argmax(torch.abs(x))])
     return theta, x.reshape(cshape), it
+
+
+def _davidson_spilled(formula, operands, cshape, x0, hdiag, inverse, tol,
+                      max_cycle):
+    """Out-of-core Davidson: the trial basis lives in host RAM
+    (:func:`davidson_host`), only the active vector and the matvec run on
+    the device; two vector transfers an iteration, so strictly a
+    does-not-run-out-of-memory path."""
+    dev, dtype = x0.device, x0.dtype
+    hd = hdiag.cpu().numpy()
+
+    def hop(v):
+        vec = torch.as_tensor(v, device=dev, dtype=dtype).reshape(cshape)
+        return (einsum(formula, *operands, vec).reshape(-1) * inverse).cpu().numpy()
+
+    def precond(r, e):
+        return r / (hd - e + 1e-4)
+
+    # the strict residual test: the device Davidson converges on rnorm
+    e, c = davidson_host(hop, [x0.cpu().numpy()], precond, nroots=1, tol=tol,
+                         max_cycle=max_cycle, strict_residual=True)
+    c = c / np.sign(c[np.argmax(np.abs(c))])
+    return (torch.as_tensor(e, dtype=x0.real.dtype, device=dev),
+            torch.as_tensor(c, dtype=dtype, device=dev).reshape(cshape), -1)
+
+
+def _orth_rows(m: torch.Tensor) -> torch.Tensor:
+    q, _ = torch.linalg.qr(m.T, mode="reduced")
+    return q.T
+
+
+def _new_directions(t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The rows of ``t`` orthonormalized against the orthonormal rows of
+    ``v`` and each other, in order; a row that lies in the span already
+    (less than 1e-3 of it is new) becomes a zero row.  A QR would complete
+    it with an arbitrary unit vector, out of the sector as likely as not,
+    where the masked matvec gives 0: a spurious zero Ritz value below every
+    physical one."""
+    rows = []
+    for row in t:
+        x = row
+        for _ in range(2):
+            x = x - (v.conj() @ x) @ v
+            for q in rows:
+                x = x - (q.conj() @ x) * q
+        nrm = torch.linalg.vector_norm(x)
+        new = nrm > 1e-3 * torch.linalg.vector_norm(row)
+        rows.append(torch.where(new, x / torch.clamp(nrm, min=torch.finfo(nrm.dtype).tiny),
+                                torch.zeros_like(x)))
+    return torch.stack(rows)
+
+
+def davidson_multiroot(hop: Callable, x0_list, hdiag: torch.Tensor,
+                       nroots: int, tol: float = 1e-9, max_cycle: int = 100,
+                       max_space: int = None):
+    """Block Davidson for the ``nroots`` lowest eigenpairs (reference callers
+    ``renormalizer/mps/gs.py:536-538``), one host read per iteration.
+    ``hop`` maps an (k, N) block of rows to its image; ``hdiag`` above 1e9
+    flags the entries outside the sector.  Returns ``(thetas, X, niter)``
+    with ``X`` of shape (nroots, N)."""
+    x0 = torch.stack(list(x0_list))
+    n = x0.shape[1]
+    dtype = x0.dtype
+    hdiag = hdiag.to(x0.real.dtype)
+    if max_space is None:
+        max_space = max(4 * nroots, 12)
+    space = min(max_space, n)
+    if space < 2 * nroots:
+        # too small for block iteration (tiny masked local problems at the
+        # chain's edges): solve densely; out-of-sector entries (flagged by
+        # the huge preconditioner diagonal) must not give spurious zero modes
+        ham = hop(torch.eye(n, dtype=dtype, device=x0.device)).T
+        ham = ham + torch.diag(torch.where(hdiag > 1e9, hdiag, 0).to(dtype))
+        w_eig, v = torch.linalg.eigh((ham + ham.mH) / 2)
+        k = min(nroots, n)
+        return w_eig[:k].real, v[:, :k].T, 0
+    v = torch.zeros((space, n), dtype=dtype, device=x0.device)
+    w = torch.zeros_like(v)
+    start = _new_directions(x0, v[:0])
+    dead = torch.linalg.vector_norm(start, dim=1) < 0.5
+    if bool(dead.any()):
+        # a zero or repeated guess: seeded random rows in the sector instead
+        gen = torch.Generator(device=x0.device).manual_seed(0)
+        noise = torch.randn(x0.shape, generator=gen, device=x0.device).to(dtype)
+        noise = torch.where(hdiag[None, :] < 1e9, noise, 0)
+        start = _new_directions(torch.where(dead[:, None], noise, x0), v[:0])
+    v[:nroots] = start
+    w[:nroots] = hop(v[:nroots])
+    size = nroots
+    thetas, x = None, v[:nroots]
+    idx = torch.arange(space, device=x0.device)
+    for it in range(max_cycle):
+        g = v.conj() @ w.T
+        g = (g + g.mH) / 2
+        pad = torch.sum(torch.abs(g)) + 1.0
+        # unused slots and the zero rows of _new_directions stay out
+        empty = (idx >= size) | (torch.linalg.vector_norm(v, dim=1) < 0.5)
+        g = g + torch.diag(torch.where(empty, pad, 0.0).to(g.dtype))
+        w_eig, c = torch.linalg.eigh(g)
+        cs = c[:, :nroots]
+        thetas = w_eig[:nroots].real
+        x = cs.T @ v
+        hx = cs.T @ w
+        r = hx - thetas[:, None] * x
+        if float(torch.linalg.vector_norm(r, dim=1).max()) <= tol:
+            return thetas, x, it
+        t = r / (hdiag[None, :] - thetas[:, None] + 1e-4)
+        for _ in range(2):
+            t = t - (t @ v.conj().T) @ v
+        if size + nroots > space:
+            v = torch.zeros_like(v)
+            w = torch.zeros_like(w)
+            v[:nroots] = _orth_rows(x)
+            w[:nroots] = hop(v[:nroots])
+            size = nroots
+        t = _new_directions(t, v)
+        slots = (size + torch.arange(nroots, device=x0.device)) % space
+        v[slots] = t
+        w[slots] = hop(t)
+        size += nroots
+    return thetas, x, max_cycle
+
+
+def davidson_host(hop, cguess, precond, nroots=1, tol=1e-9, max_cycle=100,
+                  max_space=None, strict_residual=False):
+    """Host block Davidson (numpy) for operators whose matvec is a Python
+    procedure (the TDA tangent-space Hamiltonian sweeps environments), and
+    the spill path of :func:`davidson_fused`.  ``hop`` maps a 1-d numpy
+    vector to a 1-d numpy vector; ``precond(r, e)`` preconditions a
+    residual.  Returns ``(e, c)``: ``c`` a list of eigenvectors, or one
+    vector when ``nroots == 1`` (``renormalizer_tpu/lib/solvers.py:487-557``)."""
+    if max_space is None:
+        max_space = max(6 * nroots, 14)
+    dtype = np.result_type(float, *[np.asarray(x).dtype for x in cguess])
+    x0 = [np.asarray(x, dtype=dtype) for x in cguess]
+    n = x0[0].shape[0]
+    max_space = min(max_space, n)
+
+    def add_vectors(vs, basis):
+        for vec in vs:
+            for _ in range(2):
+                if len(basis):
+                    vec = vec - basis.T @ (basis.conj() @ vec)
+            norm = np.linalg.norm(vec)
+            if norm > 1e-10:
+                basis = np.vstack([basis, vec / norm])
+        return basis
+
+    basis = add_vectors(x0, np.zeros((0, n), dtype=dtype))
+    images = np.array([hop(vec) for vec in basis])
+    e_prev = None
+    for _ in range(max_cycle):
+        g = basis.conj() @ images.T
+        g = (g + g.conj().T) / 2
+        w_eig, c = np.linalg.eigh(g)
+        k = min(nroots, len(w_eig))
+        thetas = w_eig[:k]
+        x = c[:, :k].T @ basis
+        hx = c[:, :k].T @ images
+        r = hx - thetas[:, None] * x
+        rnorms = np.linalg.norm(r, axis=1)
+        converged = np.all(rnorms < tol) or (
+            not strict_residual
+            and e_prev is not None and len(e_prev) == k
+            and np.allclose(thetas, e_prev, atol=tol))
+        if converged:
+            break
+        e_prev = thetas
+        if len(basis) + k > max_space:
+            # thick restart with the current ritz vectors
+            basis = add_vectors(list(x), np.zeros((0, n), dtype=basis.dtype))
+            images = np.array([hop(vec) for vec in basis])
+        old = len(basis)
+        basis = add_vectors([precond(r[i], thetas[i]) for i in range(k)], basis)
+        if len(basis) == old:
+            break
+        images = np.vstack([images, [hop(vec) for vec in basis[old:]]])
+    e = thetas if nroots > 1 else float(thetas[0])
+    c = [x[i] for i in range(min(nroots, x.shape[0]))]
+    return e, (c[0] if nroots == 1 else c)
 
 
 # --- Lanczos expm ----------------------------------------------------------
@@ -437,3 +678,139 @@ def solve_ivp(fun, t_span, y0, rtol=1e-3, atol=1e-6, max_steps=100000,
     IVP_COUNTS["nfev"] += nfev
     IVP_COUNTS["nsteps"] += nsteps
     return IvpResult(y, t, nfev, nsteps)
+
+
+# --- LOBPCG ----------------------------------------------------------------
+# The largest eigenpairs of an operator given by its action, as
+# ``jax.experimental.sparse.linalg.lobpcg_standard`` (which the JAX package
+# calls): an orthonormal [X, P, R] basis kept by SVQB, Rayleigh-Ritz on it,
+# no preconditioner, no locking, and the same convergence test.  A torch loop
+# over the caller's matvec with one host read per iteration; ``torch.lobpcg``
+# needs the matrix itself.
+
+def _svqb(x: torch.Tensor) -> torch.Tensor:
+    norms = torch.linalg.vector_norm(x, dim=0, keepdim=True)
+    x = x / torch.where(norms == 0, 1.0, norms)
+    inner = x.mH @ x
+    w, v = torch.linalg.eigh(inner)
+    w, v = w.flip(0), v.flip(1)
+    tau = torch.finfo(x.real.dtype).eps * w[0]
+    sqrted = torch.where(tau > 0, torch.maximum(w, tau), 1.0) ** -0.5
+    ortho = x @ (v * sqrted[None, :].to(v.dtype))
+    keep = ((w > tau) & (torch.diagonal(inner).real > 0))[None, :]
+    ortho = ortho * keep.to(ortho.dtype)
+    norms = torch.linalg.vector_norm(ortho, dim=0, keepdim=True)
+    keep = keep & (norms > 0)
+    return ortho / torch.where(keep, norms, 1.0)
+
+
+def _orthonormalize(x: torch.Tensor) -> torch.Tensor:
+    return _svqb(_svqb(x))
+
+
+def _project_out(basis: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    for _ in range(2):
+        u = u - basis @ (basis.mH @ u)
+        u = _orthonormalize(u)
+    for _ in range(2):
+        u = u - basis @ (basis.mH @ u)
+    norms = torch.linalg.vector_norm(u, dim=0, keepdim=True)
+    return u * (norms >= 0.99).to(u.dtype)
+
+
+def _extend_basis(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``m`` orthonormal columns orthogonal to the orthonormal ``x`` by a
+    block Householder reflector (deterministic)."""
+    n, k = x.shape
+    upper, lower = x[:k], x[k:]
+    u, s, vt = torch.linalg.svd(upper)
+    y = torch.cat([upper + u @ vt, lower], dim=0)
+    other = torch.cat([torch.eye(m, dtype=x.dtype, device=x.device),
+                       torch.zeros((n - k - m, m), dtype=x.dtype, device=x.device)])
+    w = y @ (vt.mH * ((2 * (1 + s)) ** -0.5)[None, :].to(x.dtype))
+    h = -2 * (w @ (w[k:].mH @ other))
+    h[k:] += other
+    return h
+
+
+def lobpcg_standard(a_op: Callable, x: torch.Tensor, m: int = 100,
+                    tol: float = None):
+    """Top-k eigenpairs of the hermitian operator ``a_op`` ((n, k) -> (n,
+    k)) from the start block ``x`` (n, k), ``k * 5 < n``.  Returns
+    ``(theta, U, iterations)``."""
+    n, k = x.shape
+    if k == 0 or k * 5 >= n:
+        raise ValueError(f"expected 0 < search dim * 5 < matrix dim (got {k}, {n})")
+    if tol is None:
+        tol = float(torch.finfo(x.real.dtype).eps)
+    x = _orthonormalize(x)
+    p = _extend_basis(x, k)
+    ax = a_op(x)
+    theta = torch.sum(x.conj() * ax, dim=0).real
+    r = ax - theta[None, :] * x
+    it = 0
+    while it < m:
+        r = _project_out(torch.cat([x, p], dim=1), r)
+        xpr = torch.cat([x, p, r], dim=1)
+        sas = xpr.mH @ a_op(xpr)
+        w_all, q = torch.linalg.eigh((sas + sas.mH) / 2)
+        theta_all, q = w_all.flip(0), q.flip(1)
+        b = q[:, :k]
+        b = b / torch.linalg.vector_norm(b, dim=0, keepdim=True)
+        x = xpr @ b
+        x = x / torch.linalg.vector_norm(x, dim=0, keepdim=True)
+        qq, _ = torch.linalg.qr(q[:k, k:].mH)
+        p = xpr @ (q[:, k:] @ qq)
+        norm_p = torch.linalg.vector_norm(p, dim=0, keepdim=True)
+        p = p / torch.where(norm_p == 0, 1.0, norm_p)
+        ax = a_op(x)
+        theta = theta_all[:k]
+        r = ax - theta[None, :] * x
+        it += 1
+        reltol = 10 * n * (torch.linalg.vector_norm(ax, dim=0) + theta)
+        if int((torch.linalg.vector_norm(r, dim=0) < tol * reltol).sum()) >= k:
+            break
+    return theta, x, it
+
+
+# --- conjugate gradient ----------------------------------------------------
+
+# CG solves and iterations (``chip_smoke.py`` prints iterations per site)
+CG_COUNTS = {"solves": 0, "iterations": 0}
+
+
+def _vdot_real(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    res = torch.dot(x.real.reshape(-1), y.real.reshape(-1))
+    if x.is_complex() or y.is_complex():
+        res = res + torch.dot(x.imag.reshape(-1), y.imag.reshape(-1))
+    return res
+
+
+def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float = 1e-5,
+       precond: Callable = None, maxiter: int = 100):
+    """Preconditioned conjugate gradient with the stopping rule of
+    ``jax.scipy.sparse.linalg.cg`` (which the JAX package calls): stop when
+    the UNpreconditioned residual has ``r.r <= tol^2 b.b`` (real parts of
+    the dot products) or after ``maxiter`` iterations; one host read per
+    check.  Returns ``(x, iterations)``."""
+    precond = precond if precond is not None else (lambda v: v)
+    atol2 = tol ** 2 * float(_vdot_real(b, b))
+    x = x0
+    r = b - matvec(x0)
+    z = precond(r)
+    p = z
+    gamma = _vdot_real(r, z)
+    k = 0
+    while k < maxiter and float(_vdot_real(r, r)) > atol2:
+        ap = matvec(p)
+        alpha = gamma / _vdot_real(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        gamma_new = _vdot_real(r, z)
+        p = z + (gamma_new / gamma) * p
+        gamma = gamma_new
+        k += 1
+    CG_COUNTS["solves"] += 1
+    CG_COUNTS["iterations"] += k
+    return x, k

@@ -4,3 +4,4 @@ from renormalizer_tpu_torch.mps.mpdm import MpDm
 from renormalizer_tpu_torch.mps.thermalprop import ThermalProp, load_thermal_state
 from renormalizer_tpu_torch.mps.gs import optimize_mps
 from renormalizer_tpu_torch.mps.lib import compressed_sum
+from renormalizer_tpu_torch.mps.tda import TDA

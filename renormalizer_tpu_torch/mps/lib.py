@@ -17,7 +17,10 @@ import numpy as np
 import torch
 
 from renormalizer_tpu_torch.backend import backend
-from renormalizer_tpu_torch.ops.contract import contract_one_site
+from renormalizer_tpu_torch.ops.contract import (
+    contract_one_site,
+    contract_one_site_multi_mpo,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -30,7 +33,7 @@ class Environ:
     ``0..siteidx`` (L) or ``siteidx..N-1`` (R):
 
     S-     -S     mps conj
-    O- or  -O     mpo
+    O- or  -O     mpo (or a list of stacked mpos, one leg each)
     S-     -S     mps
     """
 
@@ -38,10 +41,21 @@ class Environ:
         self._store = {}
         # the boundary carries the dtype of the contraction, so no
         # environment is promoted again when it meets a complex state
-        self.sentinel = torch.ones(
-            (1, 1, 1), dtype=torch.promote_types(mps[0].dtype, mpo[0].dtype),
-            device=backend.device)
+        mpos = mpo if isinstance(mpo, list) else [mpo]
+        dtype = mps[0].dtype
+        for m in mpos:
+            dtype = torch.promote_types(dtype, m[0].dtype)
+        self.sentinel = torch.ones((1,) * (len(mpos) + 2), dtype=dtype,
+                                   device=backend.device)
         self._build(mps, mpo, domain, mps_conj)
+
+    @staticmethod
+    def _contract(tensor, mps, mpo, idx, domain, ms_conj=None):
+        if isinstance(mpo, list):
+            return contract_one_site_multi_mpo(
+                tensor, mps[idx], [m[idx] for m in mpo], domain, ms_conj=ms_conj)
+        return contract_one_site(tensor, mps[idx], mpo[idx], domain,
+                                 ms_conj=ms_conj)
 
     def _build(self, mps, mpo, domain, mps_conj):
         assert domain in ("L", "R", None)
@@ -59,14 +73,15 @@ class Environ:
             indices = range(len(mps) - 1, 0, -1)
         tensor = self.sentinel
         for idx in indices:
-            tensor = contract_one_site(tensor, mps[idx], mpo[idx], domain,
-                                       ms_conj=mps_conj[idx])
+            tensor = self._contract(tensor, mps, mpo, idx, domain, mps_conj[idx])
             self.write(domain, idx, tensor)
 
-    def GetLR(self, domain, siteidx, mps, mpo, itensor=None, *, method):
+    def GetLR(self, domain, siteidx, mps, mpo, itensor=None, *, method,
+              mps_conj=None):
         """Fetch/update the environment at ``siteidx``: ``method="Enviro"``
         reads the cache, ``"System"`` extends ``itensor`` (default: the
-        cached neighbor environment) by one site and caches it."""
+        cached neighbor environment) by one site and caches it.  ``mps_conj``
+        is a bra other than the ket's conjugate (TDA's tangent sandwich)."""
         assert domain in ("L", "R") and method in ("Enviro", "System")
         if siteidx not in range(len(mps)):
             return self.sentinel
@@ -75,7 +90,8 @@ class Environ:
         if itensor is None:
             offset = -1 if domain == "L" else 1
             itensor = self.read(domain, siteidx + offset)
-        itensor = contract_one_site(itensor, mps[siteidx], mpo[siteidx], domain)
+        ms_conj = None if mps_conj is None else mps_conj[siteidx]
+        itensor = self._contract(itensor, mps, mpo, siteidx, domain, ms_conj)
         self.write(domain, siteidx, itensor)
         return itensor
 
@@ -164,10 +180,18 @@ def compressed_sum(mps_list, batchsize=5, temp_m_trunc=None):
     return queue[0]
 
 
-def cvec2cmat(c: torch.Tensor, qn_mask: np.ndarray) -> torch.Tensor:
+def cvec2cmat(c, qn_mask: np.ndarray, nroots: int = 1):
     """Scatter a qn-masked flat vector back into the dense local tensor
-    (reference ``mps/lib.py:442-457``)."""
-    mask = torch.as_tensor(qn_mask.ravel(), device=c.device)
-    full = torch.zeros(qn_mask.size, dtype=c.dtype, device=c.device)
-    full[mask] = c
-    return full.reshape(qn_mask.shape)
+    (reference ``mps/lib.py:442-457``); several roots: a list of vectors
+    (or the columns of a matrix) to a list of tensors."""
+    def one(vec):
+        mask = torch.as_tensor(qn_mask.ravel(), device=vec.device)
+        full = torch.zeros(qn_mask.size, dtype=vec.dtype, device=vec.device)
+        full[mask] = vec
+        return full.reshape(qn_mask.shape)
+
+    if nroots == 1:
+        return one(c)
+    if not isinstance(c, list):
+        c = [c[:, i] for i in range(c.shape[1])]
+    return [one(ci) for ci in c]

@@ -20,8 +20,8 @@ import torch
 
 from renormalizer_tpu_torch.backend import backend, np_dtype
 from renormalizer_tpu_torch.model import Model
-from renormalizer_tpu_torch.mps import trunc_device
-from renormalizer_tpu_torch.mps.lib import select_indices
+from renormalizer_tpu_torch.mps import svd_qn, trunc_device
+from renormalizer_tpu_torch.mps.lib import select_basis, select_indices
 from renormalizer_tpu_torch.mps.trunc_device import _double
 from renormalizer_tpu_torch.mps.svd_qn import add_outer
 from renormalizer_tpu_torch.ops.contract import chain_overlap, tensordot1
@@ -351,8 +351,10 @@ class MatrixProduct:
     def compress(self, temp_m_trunc=None, ret_s=False):
         """SVD-compress a canonicalised MP (reference ``mp.py:437-511``).
         The qn-blocked factors come from the device factorization
-        (:func:`trunc_device.compress_factors`, exact at every size); only
-        the singular values travel to the host, where the cut is chosen."""
+        (:func:`trunc_device.compress_factors`, exact at every size, with
+        the small singular values resolved and the exact zeros completed by
+        seeded random directions); only the singular values travel to the
+        host, where the cut is chosen."""
         if self.to_right:
             assert self.qnidx == 0
         else:
@@ -366,7 +368,7 @@ class MatrixProduct:
         for idx in self.iter_idx_list(full=False):
             qnbigl, qnbigr, _ = self._get_big_qn([idx])
             u, sigma, qnlset, v, _, qnrset = trunc_device.compress_factors(
-                self[idx], qnbigl, qnbigr, self.qntot, system)
+                self[idx], qnbigl, qnbigr, self.qntot, system, resolve=True)
             s_list.append(sigma)
             if temp_m_trunc is None:
                 m_trunc = self.compress_config.compute_m_trunc(sigma, idx, self.to_right)
@@ -392,13 +394,51 @@ class MatrixProduct:
     # --- truncation ----------------------------------------------------------
     def _update_mps(self, cstruct, cidx, qnbigl, qnbigr, percent=0):
         """Truncate the active-site coefficient on the device and write the
-        renormalized basis back (reference ``mp.py:651-888``)."""
+        renormalized basis back (reference ``mp.py:651-888``).  A list of
+        coefficients (state-averaged DMRG) diagonalizes their averaged
+        density matrix instead, and returns each root's coefficient rotated
+        into the new basis and merged with the neighbor (the next update's
+        guesses)."""
         system = "L" if self.to_right else "R"
         if self.compress_config.bonddim_should_set:
             self.compress_config.set_bonddim(len(self) + 1)
+        if isinstance(cstruct, list):
+            return self._update_mps_averaged(cstruct, cidx, qnbigl, qnbigr,
+                                             system, percent)
         ms, msdim, msqn, compms = self._update_mps_device(
             cstruct, cidx, qnbigl, qnbigr, system, percent)
         self._write_back(cidx, ms, msqn, compms)
+        return None
+
+    def _update_mps_averaged(self, cstruct, cidx, qnbigl, qnbigr, system,
+                             percent):
+        """The ``isinstance(cstruct, list)`` branch of the reference
+        ``mp.py:594-642``: the sector blocks of the averaged density matrix
+        go to ``svd_qn.eigh_qn`` (real blocks: the Jacobi kernel)."""
+        nl = qnbigl.ndim - 1
+        cstruct = [backend.tensor(c) for c in cstruct]
+        ddm = 0.0
+        for c in cstruct:
+            ax = list(range(nl, c.ndim)) if self.to_right else list(range(nl))
+            ddm = ddm + torch.tensordot(c, c.conj(), dims=(ax, ax))
+        ddm = ddm / len(cstruct)
+        u, s, qnnew = svd_qn.eigh_qn(ddm, qnbigl, qnbigr, self.qntot, system)
+        m_trunc = self.compress_config.compute_m_trunc(
+            s, cidx[0] if self.to_right else cidx[-1], self.to_right)
+        ms, msdim, msqn, _ = select_basis(u, s, qnnew, None, m_trunc,
+                                          percent=percent)
+        if self.to_right:
+            ms = ms.reshape(tuple(qnbigl.shape[:-1]) + (msdim,))
+            rotated = [torch.tensordot(ms.conj(), c, dims=(list(range(nl)),) * 2)
+                       for c in cstruct]
+        else:
+            nr = qnbigr.ndim - 1
+            ms = ms.reshape(tuple(qnbigr.shape[:-1]) + (msdim,))
+            rotated = [torch.tensordot(c, ms.conj(),
+                                       dims=(list(range(nl, c.ndim)), list(range(nr))))
+                       for c in cstruct]
+            ms = torch.movedim(ms, -1, 0)
+        return self._write_back(cidx, ms, msqn, rotated[0], rotated)
 
     def _update_mps_device(self, cstruct, cidx, qnbigl, qnbigr, system, percent):
         """Randomized sector-pure candidates on the device, selection on the
@@ -430,25 +470,35 @@ class MatrixProduct:
         )
         return ms, len(sidx), msqn, compms
 
-    def _write_back(self, cidx, ms, msqn, compms):
-        """Write the factors back into the chain."""
+    def _write_back(self, cidx, ms, msqn, compms, rotated=None):
+        """Write the factors back into the chain.  With ``rotated`` (the
+        state-averaged roots) returns each root merged like ``compms``."""
+        averaged = [] if rotated is not None else None
         if len(cidx) == 1:
             self[cidx[0]] = ms
             if self.to_right:
                 if cidx[0] != self.site_num - 1:
-                    self[cidx[0] + 1] = tensordot1(compms, self[cidx[0] + 1])
+                    nxt = self[cidx[0] + 1]
+                    self._merge_roots(averaged, rotated, lambda c: tensordot1(c, nxt))
+                    self[cidx[0] + 1] = tensordot1(compms, nxt)
                     self.qn[cidx[0] + 1] = msqn
                     self.qnidx = cidx[0] + 1
                 else:
-                    self[cidx[0]] = tensordot1(self[cidx[0]], compms)
+                    cur = self[cidx[0]]
+                    self._merge_roots(averaged, rotated, lambda c: tensordot1(cur, c))
+                    self[cidx[0]] = tensordot1(cur, compms)
                     self.qnidx = self.site_num - 1
             else:
                 if cidx[0] != 0:
-                    self[cidx[0] - 1] = tensordot1(self[cidx[0] - 1], compms)
+                    prv = self[cidx[0] - 1]
+                    self._merge_roots(averaged, rotated, lambda c: tensordot1(prv, c))
+                    self[cidx[0] - 1] = tensordot1(prv, compms)
                     self.qn[cidx[0]] = msqn
                     self.qnidx = cidx[0] - 1
                 else:
-                    self[cidx[0]] = tensordot1(compms, self[cidx[0]])
+                    cur = self[cidx[0]]
+                    self._merge_roots(averaged, rotated, lambda c: tensordot1(c, cur))
+                    self[cidx[0]] = tensordot1(compms, cur)
                     self.qnidx = 0
         else:
             if self.to_right:
@@ -459,7 +509,15 @@ class MatrixProduct:
                 self[cidx[1]] = ms
                 self[cidx[0]] = compms
                 self.qnidx = cidx[0]
+            if rotated is not None:
+                averaged = rotated
             self.qn[cidx[1]] = msqn
+        return averaged
+
+    @staticmethod
+    def _merge_roots(averaged, rotated, merge):
+        if rotated is not None:
+            averaged.extend(merge(c) for c in rotated)
 
     # --- algebra -----------------------------------------------------------------
     @property

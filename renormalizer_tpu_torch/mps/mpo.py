@@ -8,6 +8,7 @@ runs on the host (``symbolic_mpo.py``); the numeric site tensors live on the
 backend device.
 """
 
+import itertools
 import logging
 from copy import deepcopy
 from typing import List, Union
@@ -157,6 +158,63 @@ class Mpo(MatrixProduct):
             mpo.append(np.eye(p).reshape(1, p, p, 1))
         mpo.build_empty_qn()
         return mpo
+
+    @classmethod
+    def finiteT_cv(cls, model, nexciton, m_max, spectratype, percent=1.0):
+        """Random initial CV-MPO with 2-component (bra, ket) quantum numbers
+        for finite-temperature correction-vector DDMRG
+        (reference ``mpo.py:156-239``).  Drawn from
+        ``np.random.default_rng(0)`` and diagonalized by scipy, as the JAX
+        package does, so both packages start from the same tensors."""
+        from renormalizer_tpu_torch.mps.lib import select_basis
+
+        assert spectratype in ("abs", "emi")
+        tag = 0 if spectratype == "abs" else 1
+        x_mpo = cls()
+        x_mpo.model = model
+        x_mpo.qn = ([np.zeros((1, 2), dtype=int)] + [None] * (model.nsite - 1)
+                    + [np.zeros((1, 2), dtype=int)])
+        dim_list = [1]
+        rng = np.random.default_rng(0)
+        for ix in range(model.nsite - 1):
+            sigmaqn = np.array(list(itertools.product(
+                model.basis[ix].sigmaqn.ravel(), repeat=2)))
+            prev_qn = np.asarray(x_mpo.qn[ix]).reshape(-1, 2)
+            qn1 = np.add.outer(prev_qn[:, 0], sigmaqn[:, 0]).ravel()
+            qn2 = np.add.outer(prev_qn[:, 1], sigmaqn[:, 1]).ravel()
+            qnbig = np.stack([qn1, qn2], axis=1)
+            u_set, s_set, qnset = [], [], []
+            for iblock in range(int(qnbig[:, tag].min()), nexciton + 1):
+                indices = np.nonzero(
+                    (qnbig[:, tag] == iblock) & (qnbig[:, 1 - tag] == 0))[0]
+                if len(indices) == 0:
+                    continue
+                a = rng.random((len(indices), len(indices))) - 0.5
+                a = a + a.T
+                s, u = scipy.linalg.eigh(a)
+                full = np.zeros((len(qnbig), len(indices)))
+                full[indices, :] = u
+                u_set.append(full)
+                s_set.append(s)
+                block_qn = [0, 0]
+                block_qn[tag] = iblock
+                qnset += [tuple(block_qn)] * len(indices)
+            u_set = np.concatenate(u_set, axis=1)
+            s_set = np.concatenate(s_set)
+            x, xdim, xqn, _ = select_basis(u_set, s_set, qnset, None, m_max,
+                                           percent=percent)
+            dim_list.append(xdim)
+            x_mpo.qn[ix + 1] = np.array(xqn)
+            x_mpo.append(np.asarray(x).reshape(
+                dim_list[-2], model.pbond_list[ix], model.pbond_list[ix], xdim))
+        dim_list.append(1)
+        x_mpo.append(rng.random(
+            (dim_list[-2], model.pbond_list[-1], model.pbond_list[-1], 1)))
+        x_mpo.qnidx = len(x_mpo) - 1
+        x_mpo.to_right = False
+        x_mpo.qntot = np.array([0, 0])
+        x_mpo.qntot[tag] = nexciton
+        return x_mpo
 
     # --- structure ----------------------------------------------------------
     def _get_sigmaqn(self, idx):

@@ -206,3 +206,45 @@ def svd_qn(
         new_qnl = [new_qnl[i] for i in order]
         new_qnr = [new_qnr[i] for i in order]
     return u, su, new_qnl, v, sv, new_qnr
+
+
+def eigh_qn(dm: torch.Tensor, qnbigl, qnbigr, qntot, system: str):
+    """Blockwise diagonalization of the state-averaged reduced density
+    matrix (reference ``svd_qn.py:243-302``), on the device: each sector
+    block goes through ``trunc_device.gram_eigh`` (a real block to the
+    Jacobi kernel, a complex one to ``torch.linalg.eigh`` in complex128,
+    counted in ``LINALG_EIGH_GRAMS``).  Returns ``(u, s, qn_list)``: ``u``
+    the device eigenvectors scattered into the full row space, sector by
+    sector in ascending eigenvalue order, ``s`` the host square roots of the
+    eigenvalues (negative rounding clipped to 0) and the per-column
+    quantum numbers."""
+    from renormalizer_tpu_torch.mps.trunc_device import gram_eigh
+
+    assert system in ("L", "R")
+    qnbig, comp = (qnbigl, qnbigr) if system == "L" else (qnbigr, qnbigl)
+    qntot = np.atleast_1d(np.asarray(qntot))
+    qn_size = len(qntot)
+    localqn = np.asarray(qnbig).reshape(-1, qn_size)
+    comp_flat = np.asarray(comp).reshape(-1, qn_size)
+    n = len(localqn)
+    mat = backend.tensor(dm).reshape(n, n)
+
+    u_blocks, w_list, new_qn = [], [], []
+    for nl in sorted(set(tuple(t) for t in localqn)):
+        if not get_qn_mask(comp_flat, qntot - np.array(nl)).any():
+            continue
+        sel = np.nonzero(get_qn_mask(localqn, np.array(nl)))[0]
+        idx = torch.as_tensor(sel, device=mat.device)
+        w, bu = gram_eigh(mat[idx][:, idx])
+        w_list.append(w)
+        u_blocks.append((idx, bu))
+        new_qn.extend([tuple(nl)] * len(sel))
+
+    u = torch.zeros((n, len(new_qn)), dtype=mat.dtype, device=mat.device)
+    col = 0
+    for idx, bu in u_blocks:
+        u[idx, col:col + bu.shape[1]] = bu
+        col += bu.shape[1]
+    # ONE fetch of every block's spectrum
+    w = torch.cat(w_list).cpu().numpy()
+    return u, np.sqrt(np.where(w < 0, 0, w)), new_qn

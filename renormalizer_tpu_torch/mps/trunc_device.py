@@ -196,16 +196,10 @@ def _candidate_core(a: torch.Tensor, mask_a: torch.Tensor,
     return vals, torch.gather(lam, 1, order)
 
 
-def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen):
-    """Per-sector candidates on the gathered block: returns candidates
-    scattered into the full row space (rows = n if ``transpose`` else m),
-    lam descending, and with ``want_v`` the matching right factor."""
-    m, n = cmat.shape
-    dev = cmat.device
-    gr = torch.as_tensor(lset, device=dev)
-    gc = torch.as_tensor(rset, device=dev)
-    block = cmat[gr][:, gc]
-    a = block.T if transpose else block
+def _gram_pass(a, l1, l2, gen):
+    """One randomized range finder + Rayleigh-Ritz pass on the block ``a``
+    (rows x cols): ``l1`` sketched columns and ``l2`` random complement
+    columns.  Returns the candidates (rows, l1 + l2) and lam descending."""
     ra, rb = a.shape
     omega = _randn(gen, (rb, l1), a.dtype)
     y = _orth(a @ omega)
@@ -220,7 +214,93 @@ def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen):
     g = g + delta * _eye(l1 + l2, g)
     lam, w = gram_eigh(g)
     lam = torch.nan_to_num(torch.clamp(lam.flip(-1) - delta, min=0))
-    u = q @ w.flip(-1)
+    return q @ w.flip(-1), lam
+
+
+def _seeded_completion(done: torch.Tensor, need: int, gen) -> torch.Tensor:
+    """``need`` orthonormal columns orthogonal to the orthonormal ``done``
+    (rows x p): Gaussian columns from the port's seeded generator, with
+    ``done`` projected out twice and a QR whose R diagonal is made positive.
+    The directions come from the seed, not from a factorization's
+    rounding; random ones, because imaginary-time evolution can only grow
+    along padding that overlaps the states it needs (unit vectors of the
+    first rows ended 1.8e-4 off on the J = 0.2 chain below)."""
+    z = _randn(gen, (done.shape[0], need), done.dtype)
+    for _ in range(2):
+        z = z - done @ (done.mH @ z)
+    q, r = _qr(z)
+    return q * torch.sgn(torch.diagonal(r))[None, :]
+
+
+def _resolved_range(a: torch.Tensor, gen):
+    """All ``min(rows, cols)`` left singular vectors of the block ``a`` and
+    lam descending, with every singular value above the rounding of ``a``
+    resolved and the exact zeros completed by :func:`_seeded_completion`.
+
+    One Gram pass resolves a singular value only down to ~sqrt(eps) of the
+    largest: the Gram squares it under its own rounding (eps |a|^2), so the
+    1e-10-weight directions that ``expand_bond_dimension`` adds come out as
+    rounding noise, as do the completions of the exact zeros.  Imaginary-time
+    TDVP-PS grows along whatever directions the padding holds (exp(tau |H|)),
+    and from noise it ended 8.1e-4 off the dense ensemble where a full SVD's
+    padding ends 4.8e-6 off.  So the block is deflated by the resolved
+    directions and factorized again until what is left is rounding.
+
+    The result still depends on the seed (ROADMAP queue 3;
+    ``padding_seed_probe.py``): on that chain seeds 0, 1 and 2 end 5.4e-6,
+    1.5e-3 and 9.8e-6 off (2019, the default: 4.4e-6), while LAPACK's SVD
+    ends 5.4e-6 off for each; LAPACK also resolves the singular values
+    below eps |a| (1e-17 to 1e-27 here), and the cut orders the padding by
+    them."""
+    k = min(a.shape)
+    finfo = torch.finfo(a.real.dtype)
+    resolve = 16 * finfo.eps ** 0.5
+    floor = 64 * finfo.eps * float(torch.linalg.matrix_norm(a))
+    us, lams = [], []
+    rest = a
+    # a block of zeros, or a remainder at the rounding of ``a``, has nothing
+    # left to resolve: one host read instead of a Gram
+    while k > 0 and float(torch.linalg.matrix_norm(rest)) > floor:
+        u, lam = _gram_pass(rest, k, 0, gen)
+        if us:
+            # rest lies in the complement up to the rounding of ``a``
+            done = torch.cat(us, dim=1)
+            u = u - done @ (done.mH @ u)
+            q, r = _qr(u)
+            u = q * torch.sgn(torch.diagonal(r))[None, :]
+        sigma = np.sqrt(lam.cpu().numpy())
+        if sigma[0] <= floor:
+            break
+        n_ok = max(1, int((sigma > resolve * sigma[0]).sum()))
+        u = u[:, :n_ok]
+        us.append(u)
+        lams.append(lam[:n_ok])
+        rest = rest - u @ (u.mH @ rest)
+        k -= n_ok
+    if k > 0:
+        done = torch.cat(us, dim=1) if us else a[:, :0]
+        us.append(_seeded_completion(done, k, gen))
+        lams.append(torch.zeros(k, dtype=a.real.dtype, device=a.device))
+    return torch.cat(us, dim=1), torch.cat(lams)
+
+
+def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen,
+                       resolve=False):
+    """Per-sector candidates on the gathered block: returns candidates
+    scattered into the full row space (rows = n if ``transpose`` else m),
+    lam descending, and with ``want_v`` the matching right factor.  With
+    ``resolve`` the block's whole range is factorized by
+    :func:`_resolved_range` (``l1`` is then its rank and ``l2`` 0)."""
+    m, n = cmat.shape
+    dev = cmat.device
+    gr = torch.as_tensor(lset, device=dev)
+    gc = torch.as_tensor(rset, device=dev)
+    block = cmat[gr][:, gc]
+    a = block.T if transpose else block
+    if resolve:
+        u, lam = _resolved_range(a, gen)
+    else:
+        u, lam = _gram_pass(a, l1, l2, gen)
     rows_out = n if transpose else m
     out = torch.zeros((rows_out, l1 + l2), dtype=cmat.dtype, device=dev)
     out[gc if transpose else gr] = u
@@ -243,7 +323,8 @@ def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen):
 
 
 def candidates(coef_array, qnbigl, qnbigr, qntot, system: str, cap: int,
-               want_complement: bool, want_v: bool = False):
+               want_complement: bool, want_v: bool = False,
+               resolve: bool = False):
     """Truncation candidates of the coefficient ``coef_array``.
 
     Returns ``(parts, sigma, qn_list)`` — plus ``parts_v`` with ``want_v`` —
@@ -310,7 +391,7 @@ def candidates(coef_array, qnbigl, qnbigr, qntot, system: str, cap: int,
             # complement candidates beyond the b-side have no right factor
             assert l2 == 0
         out, lam, out_v = _sector_candidates(cmat, lset, rset, l1, l2,
-                                             transpose, want_v, gen)
+                                             transpose, want_v, gen, resolve)
         parts.append(out)
         parts_v.append(out_v)
         lams.append(lam)
@@ -377,18 +458,28 @@ def _spread_zero_weight(sigma: np.ndarray, qn_list) -> np.ndarray:
     return np.concatenate([order[~zero], np.array(tail, dtype=order.dtype)])
 
 
-def compress_factors(coef_array, qnbigl, qnbigr, qntot, system: str):
+def compress_factors(coef_array, qnbigl, qnbigr, qntot, system: str,
+                     resolve: bool = False):
     """Exact qn-blocked SVD factors, API-compatible with
     ``svd_qn(..., full_matrices=False)``: ``(u, sigma, qnl_list, v, sigma,
     qnr_list)`` sorted by descending singular value, with device ``u``/``v``
-    and ``C = u diag(sigma) v^T``."""
+    and ``C = u diag(sigma) v^T``.  With ``resolve`` every sector's kept
+    side comes from :func:`_resolved_range` (``compress``: the padding of
+    ``expand_bond_dimension``); without it one Gram pass (the MU-VMF/CMF
+    gauge factorizations, inside every right-hand side).  The gauge
+    factorizations keep the one pass because through
+    :func:`_resolved_range` MU-VMF stalled: one step of 1 a.u. of
+    ``ChargeDiffusionDynamics`` on the 6-molecule bench chain at M=64 ran
+    over 8 minutes on an H100 where one pass takes 6.5-7.9 s, and on a
+    3-molecule chain at M=16 over 300 s on the CPU where one pass takes
+    7.3 s (92 right-hand sides)."""
     qntot = np.atleast_1d(np.asarray(qntot))
     qn_size = len(qntot)
     m = int(np.asarray(qnbigl).reshape(-1, qn_size).shape[0])
     n = int(np.asarray(qnbigr).reshape(-1, qn_size).shape[0])
     parts, sigma, qn_kept, parts_v = candidates(
         coef_array, qnbigl, qnbigr, qntot, system, min(m, n),
-        want_complement=False, want_v=True)
+        want_complement=False, want_v=True, resolve=resolve)
     order = _spread_zero_weight(sigma, qn_kept)
     sigma = sigma[order]
     sel = torch.as_tensor(order, device=parts[0].device)

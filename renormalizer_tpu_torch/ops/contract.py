@@ -89,10 +89,11 @@ def _plan(formula: str, shapes) -> Tuple:
 
 def einsum(formula: str, *arrays: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` contracted pairwise along a cached optimal order.
-    Operands of mixed dtype are promoted to a common one first; this is a
-    guard only: the evolution converts its MPO and environments to the
-    state's dtype once, so the hot loops arrive here already unified and
-    ``Tensor.to`` returns its argument."""
+    Operands of mixed dtype are promoted to a common one first.  The
+    evolution converts its MPO and environments to the state's dtype once,
+    so its hot loops arrive here already unified and ``Tensor.to`` returns
+    its argument; the correction vector's double-precision environments
+    meet single-precision site tensors here and promote them."""
     dtype = arrays[0].dtype
     for a in arrays[1:]:
         if a.dtype != dtype:
@@ -135,11 +136,41 @@ def contract_one_site(environ, ms, mo, domain, ms_conj=None):
     return einsum(formula, environ, ms_conj, mo, ms)
 
 
+def contract_one_site_multi_mpo(environ, ms, mos, domain, ms_conj=None):
+    """Environment update with a list of stacked MPOs, the environment
+    carrying one leg per MPO (reference ``mps/lib.py:121-166``); used with
+    ``[mpo, mpo]`` for the (H - w)^2 targeting of ``optimize_mps``."""
+    if ms_conj is None:
+        ms_conj = ms.conj()
+    dtype = ms.dtype
+    for t in (environ, ms_conj, *mos):
+        dtype = torch.promote_types(dtype, t.dtype)
+    environ, ms, ms_conj = environ.to(dtype), ms.to(dtype), ms_conj.to(dtype)
+    mos = [mo.to(dtype) for mo in mos]
+    if ms.ndim == 4:
+        ms_conj = ms_conj.permute(0, 2, 1, 3)
+    elif ms.ndim != 3:
+        raise ValueError(f"MPS ndim is not 3 or 4, got {ms.ndim}")
+    if domain == "L":
+        out = torch.tensordot(environ, ms_conj, dims=([0], [0]))
+        for mo in mos:
+            out = torch.tensordot(out, mo, dims=([0, out.ndim - 2], [0, 1]))
+        if ms.ndim == 3:
+            return torch.tensordot(out, ms, dims=([0, out.ndim - 2], [0, 1]))
+        return torch.tensordot(out, ms, dims=([0, 1, out.ndim - 2], [0, 2, 1]))
+    out = torch.tensordot(environ, ms_conj, dims=([0], [ms_conj.ndim - 1]))
+    for mo in mos:
+        out = torch.tensordot(out, mo, dims=([0, out.ndim - 1], [3, 1]))
+    if ms.ndim == 3:
+        return torch.tensordot(out, ms, dims=([0, out.ndim - 1], [2, 1]))
+    return torch.tensordot(out, ms, dims=([0, 2, out.ndim - 1], [3, 2, 1]))
+
+
 # --- effective-Hamiltonian matvecs ---------------------------------------
 # hop(c) = L . W[...] . R . c, the hot loop of DMRG
 # (reference ``mps/hop_expr.py:7-117``); formulas keyed by
-# (nsite, ancilla, twolayer).  The two-layer (H-w)^2 entries mirror the JAX
-# package's table; the port's DMRG does not use them yet.
+# (nsite, ancilla, twolayer).  The two-layer entries apply (H - w)^2 with
+# 4-leg environments: the omega-targeted DMRG and the correction vector.
 
 _HOP_FORMULAS = {
     # zero site: S-a l-S / O-b b-O / S-c k-S
@@ -156,27 +187,41 @@ _HOP_FORMULAS = {
 }
 
 
-def hop_spec(ltensor, rtensor, cmo, cshape):
+def hop_spec(ltensor, rtensor, cmo, cshape, twolayer: bool = False):
     """Return ``(formula, operands)`` such that
-    ``einsum(formula, *operands, c) == H_eff @ c``."""
+    ``einsum(formula, *operands, c) == H_eff @ c``; with ``twolayer`` the
+    operator is the square of the one-layer one, each MPO tensor appearing
+    twice (4-leg environments from ``Environ(mps, [mpo, mpo])``)."""
     nsite = len(cmo)
     ancilla = 2 * nsite + 2 == len(cshape)
+    if twolayer:
+        assert nsite in (1, 2) and not ancilla
+        formula, _ = _HOP_FORMULAS[(nsite, False, True)]
+        if nsite == 1:
+            return formula, (ltensor, cmo[0], cmo[0], rtensor)
+        return formula, (ltensor, cmo[0], cmo[0], cmo[1], cmo[1], rtensor)
     formula, _ = _HOP_FORMULAS[(nsite, ancilla if nsite else False, False)]
     return formula, (ltensor, *cmo, rtensor)
 
 
-def hop_expr(ltensor, rtensor, cmo, cshape):
+def hop_expr(ltensor, rtensor, cmo, cshape, twolayer: bool = False):
     """The effective-H matvec closure for the given environments and
     center-site MPO tensors.  ``cshape`` disambiguates the ancilla case."""
-    formula, operands = hop_spec(ltensor, rtensor, cmo, cshape)
+    formula, operands = hop_spec(ltensor, rtensor, cmo, cshape, twolayer)
     return lambda c: einsum(formula, *operands, c)
 
 
 # --- effective-H diagonals for preconditioning ----------------------------
 
-def hop_diag(ltensor, rtensor, cmo):
+def hop_diag(ltensor, rtensor, cmo, twolayer: bool = False):
     """Diagonal of the effective Hamiltonian
     (reference ``mps/gs.py:422-469``)."""
+    if twolayer:
+        if len(cmo) == 1:
+            return einsum("abca,bdef,cedg,hfgh->adh",
+                          ltensor, cmo[0], cmo[0], rtensor)
+        return einsum("abca,bdef,cedg,fhij,gihk,ljkl->adhl",
+                      ltensor, cmo[0], cmo[0], cmo[1], cmo[1], rtensor)
     ldiag = torch.einsum("aba->ba", ltensor)
     rdiag = torch.einsum("aba->ba", rtensor)
     cdiags = [torch.einsum("abbc->abc", m) for m in cmo]
@@ -185,9 +230,15 @@ def hop_diag(ltensor, rtensor, cmo):
     return einsum("ba,bce,edg,gf->acdf", ldiag, cdiags[0], cdiags[1], rdiag)
 
 
-def hop_dense(ltensor, rtensor, cmo):
+def hop_dense(ltensor, rtensor, cmo, twolayer: bool = False):
     """Materialize the dense effective Hamiltonian (for small local problems,
     reference ``mps/gs.py:307-369``)."""
+    if twolayer:
+        if len(cmo) == 1:
+            return einsum("abcd,befg,cfhi,jgik->aejdhk",
+                          ltensor, cmo[0], cmo[0], rtensor)
+        return einsum("abcd,befg,cfhi,gjkl,ikmn,olnp->aejodhmp",
+                      ltensor, cmo[0], cmo[0], cmo[1], cmo[1], rtensor)
     if len(cmo) == 1:
         return einsum("abc,bdef,lfk->adlcek", ltensor, cmo[0], rtensor)
     return einsum("abc,bdef,fghj,ljk->adglcehk", ltensor, cmo[0], cmo[1], rtensor)

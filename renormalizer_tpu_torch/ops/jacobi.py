@@ -312,6 +312,28 @@ def jacobi_eigh_reference(a: torch.Tensor, sweeps: int = None,
     return _finish(*out, n0, batched, return_resid, return_sweeps)
 
 
+def jacobi_eigh_reference_stacks(stacks, sweeps: int = None):
+    """:func:`jacobi_eigh_reference` of several (B, n, n) stacks of one dtype
+    whose n pad to the same size, solved as one batch; returns one ``(w,
+    v)`` per stack.  The padding never mixes with a real block and a matrix
+    that has converged stays as it is, so each result is that of its own
+    call up to the rounding of the batched products."""
+    size = padded_size(stacks[0].shape[-1])
+    assert all(padded_size(s.shape[-1]) == size for s in stacks)
+    for s in stacks:
+        _check(s)
+    sweeps = default_sweeps(stacks[0].dtype) if sweeps is None else sweeps
+    w, v, resid, nsweeps = _solve_reference(
+        torch.cat([_pad(s, size) for s in stacks]), sweeps)
+    out, start = [], 0
+    for s in stacks:
+        part = slice(start, start + s.shape[0])
+        out.append(_finish(w[part], v[part], resid[part], nsweeps[part],
+                           s.shape[-1], True, False, False))
+        start += s.shape[0]
+    return out
+
+
 def jacobi_eigh(a: torch.Tensor, sweeps: int = None, return_resid: bool = False,
                 return_sweeps: bool = False):
     """Eigenpairs of real symmetric ``a`` ((n, n) or (B, n, n)), eigenvalues

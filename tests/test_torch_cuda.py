@@ -85,3 +85,49 @@ def test_thermal_prop_reaches_the_kernel(cuda, monkeypatch):
     assert launches > 0
     # both fp32; the CPU run is 4.6e-7 off the dense populations
     np.testing.assert_allclose(on_card, on_cpu, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_on_state_averaged_density_matrix_blocks(cuda, monkeypatch):
+    """The sector blocks of the averaged density matrix that state-averaged
+    DMRG (2 roots, ``tests/test_mps.py::test_dmrg_nroots``'s model and
+    procedure) hands ``svd_qn.eigh_qn`` on the card: each block again
+    through the kernel and through its plain version, eigenvalues within
+    2e-5 ||A||_F of each other (twice phase 3's f32 tolerance), neither at
+    the sweep cap."""
+    from renormalizer_tpu_torch import HolsteinModel, Mol, Phonon, Quantity
+    from renormalizer_tpu_torch.mps import svd_qn, trunc_device
+    from renormalizer_tpu_torch.mps.gs import construct_mps_mpo, optimize_mps
+
+    blocks, inside = [], []
+    gram_eigh, eigh_qn = trunc_device.gram_eigh, svd_qn.eigh_qn
+
+    def keep(g):
+        if inside:
+            blocks.append(g.clone())
+        return gram_eigh(g)
+
+    def averaged(*args, **kwargs):
+        inside.append(True)
+        try:
+            return eigh_qn(*args, **kwargs)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(trunc_device, "gram_eigh", keep)
+    monkeypatch.setattr(svd_qn, "eigh_qn", averaged)
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
+    mps, mpo = construct_mps_mpo(model, 16, 1)
+    mps.optimize_config.procedure = [[8, 0.4], [16, 0.2], [16, 0], [16, 0]]
+    mps.optimize_config.nroots = 2
+    optimize_mps(mps, mpo)
+    assert blocks and all(b.device.type == "cuda" for b in blocks)
+    cap = jacobi.default_sweeps(torch.float32) + jacobi.MAX_EXTRA_SWEEPS
+    for a in blocks:
+        w, _, _, sweeps = jacobi_eigh(a, return_resid=True, return_sweeps=True)
+        w_p, _, _, sweeps_p = jacobi_eigh_reference(a, return_resid=True,
+                                                    return_sweeps=True)
+        assert int(sweeps.max()) < cap and int(sweeps_p.max()) < cap
+        norm = max(float(torch.linalg.matrix_norm(a)), 1e-30)
+        assert float((w - w_p).abs().max()) < 2e-5 * norm

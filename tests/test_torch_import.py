@@ -65,7 +65,8 @@ def test_port_runs_without_jax():
     assert out["jax_modules"] == []
     assert out["renormalizer_tpu"] == []
     for name in ("sbm.sbm", "sbm.lib", "utils.tdmps", "utils.rk", "lib.solvers",
-                 "interop"):
+                 "interop", "mps.tda", "cv.spectra_cv", "cv.zerot", "cv.finitet",
+                 "vibration.vscf", "vibronic.vibronic"):
         assert "renormalizer_tpu_torch." + name in out["modules"]
     # 0.76317132 is the dense expm value of sigma_z(0.4) for this model
     assert out["sigma_z"][0] == 1.0 and abs(out["sigma_z"][2] - 0.76317132) < 1e-6
@@ -79,7 +80,8 @@ def test_port_runs_without_jax():
 def _port_sources():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     paths = [os.path.join(repo, name) for name in
-             ("chip_smoke.py", "energy_witness.py", "vmf_precision_probe.py")]
+             ("chip_smoke.py", "energy_witness.py", "vmf_precision_probe.py",
+              "padding_seed_probe.py")]
     for root, dirs, files in os.walk(os.path.join(repo, "renormalizer_tpu_torch")):
         if "_build" in dirs:
             dirs.remove("_build")  # build output, not source
@@ -89,8 +91,8 @@ def _port_sources():
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     """Every import statement of the port, the chip smoke script, the
-    energy witness and the MU-VMF precision probe, read from the syntax
-    tree."""
+    energy witness, the MU-VMF precision probe and the padding seed probe,
+    read from the syntax tree."""
     paths = _port_sources()
     assert len(paths) > 30
     for path in paths:

@@ -65,6 +65,22 @@ def test_batched_equals_per_matrix():
         assert torch.equal(r_b[i], r_i)
 
 
+def test_reference_stacks_equal_their_own_calls():
+    """Stacks of n = 33, 40 and 64 (all padded to 64) solved as one batch
+    give each stack's own result (1e-12); a stack that pads to another size
+    is refused."""
+    rng = np.random.default_rng(12)
+    stacks = [torch.tensor(np.stack([_symmetric(rng, n) for _ in range(b)]))
+              for b, n in ((2, 33), (1, 40), (3, 64))]
+    for s, (w, v) in zip(stacks, jacobi.jacobi_eigh_reference_stacks(stacks)):
+        w_1, v_1 = jacobi.jacobi_eigh_reference(s)
+        assert torch.abs(w - w_1).max() < 1e-12
+        assert torch.abs(torch.abs(v) - torch.abs(v_1)).max() < 1e-12
+    with pytest.raises(AssertionError):
+        jacobi.jacobi_eigh_reference_stacks([stacks[0], torch.zeros((1, 70, 70),
+                                                                    dtype=torch.float64)])
+
+
 def test_padding_is_exact_and_rejects_bad_input():
     """n=20 pads to 32: the result must be that of the 20x20 problem."""
     a = _symmetric(np.random.default_rng(9), 20)
