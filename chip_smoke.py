@@ -15,12 +15,13 @@ Phases (any failure exits non-zero):
      n = 288; past n = 288 the f32 tolerances grow as n / 288), the ten
      (1, n, n) shapes that phases 6(d), 9 and 10 solve among them; then, at
      the DMRG path's shapes (2, 288, 288) and (1, 544, 544), the evolution
-     path's (1, 48, 48) and the Kubo path's (1, n, n), n = 106, 8, 2, 25, f32,
-     the kernel, the plain version and torch.linalg.eigh timed in turns, the
-     sweeps each timed solve took, and the kernel's bound (the plain version
-     in one call per shape, without a warm-up: seconds a call at the widest
-     shapes, no yardstick); and phase 12's widest and most frequent shapes
-     (EXCITED_PATH_GRAMS);
+     path's (1, 48, 48), the Kubo path's (1, n, n), n = 106, 8, 2, 25, and
+     phase 12's widest and batched shapes (EXCITED_PATH_GRAMS: (1, 384, 384),
+     (1, 160, 160), (2, 64, 64), (2, 96, 96)), f32, the kernel, the plain
+     version and torch.linalg.eigh timed in turns, the sweeps each timed
+     solve took, and the kernel's bound (the plain version in one call per
+     shape, without a warm-up: seconds a call at the widest shapes, no
+     yardstick); phase 12's shapes are also held against the plain version;
   4. main path: 2-site DMRG of the 6-molecule Holstein chain (18 sites) at
      M=256 in fp32, through Mps.random / Mpo / optimize_mps; the energy must be
      within 1e-6 of 0.11503887 and the truncation's Gram eigh must have gone
@@ -37,11 +38,12 @@ Phases (any failure exits non-zero):
      random state, (b) the qn-structured 6-molecule, 4-level Holstein chain
      at M=48, (c) the DMRG path's 6-level chain at M=256, (d) the
      SpinBosonDynamics job on the 32-site chain at M=48, whose constructor
-     compresses real states (Jacobi kernel launches > 0, no real Gram eigh
-     elsewhere; the (batch, n) of every launch, its sweeps and residual are
-     printed, none may run to the sweep cap or have a shape that phase 3 did
-     not hold, and every one of these Grams is solved again by the plain
-     version and compared).  After every step: norm within 1e-4 of 1, <psi|H|psi>
+     compresses real states (each sector block by torch.linalg.svd, counted:
+     at least one; no real Gram eigh around the kernel; the (batch, n) of
+     every launch, its sweeps and residual are printed, none may run to the
+     sweep cap, and every one of these Grams is solved again by the plain
+     version and compared; the steps' compresses of the complex state factor
+     by torch.linalg.svd too, counted: at least one).  After every step: norm within 1e-4 of 1, <psi|H|psi>
      constant within ENERGY_RTOL * max(1, |E|), all tensors finite; in (d)
      sigma_z(0) = 1 and |sigma_z| <= 1 + 1e-5.  Prints seconds per step, bond
      dimensions and the site visits by branch (fused / unfused).
@@ -62,9 +64,11 @@ Phases (any failure exits non-zero):
      1e-4 and its energy below that of beta = 0; bra and ket norms within
      NORM_TOL and <H> within ENERGY_RTOL max(1, |E|) of their first values;
      |Im C(0)| <= 1e-4 |C(0)| and |C(t)| <= 1.001 |C(0)|.  The constructor's
-     Jacobi launches are recorded as in 6(d): none at the sweep cap, none of
-     a shape that phase 3 did not hold (KUBO_PATH_GRAMS), every one solved
-     again by torch.linalg.eigh inside phase 3's f32 tolerances.
+     compresses factor by torch.linalg.svd (counted: at least one), and its
+     Jacobi launches are recorded as in 6(d): none at the sweep cap, a shape
+     that phase 3 did not hold (KUBO_PATH_GRAMS) held against the plain
+     version, every one solved again by torch.linalg.eigh inside phase 3's
+     f32 tolerances.
  10. the rest of Mps.evolve and its jobs: (a) against dense oracles on the
      JAX package's test models: TDVP-PS2, MU-VMF, VMF and MU-CMF on the
      3-molecule, 2-level chain (occupations within 1e-4, MU-CMF 5e-4, mean
@@ -108,11 +112,30 @@ Phases (any failure exits non-zero):
      the sweep cap, every one is solved again by torch.linalg.eigh inside
      phase 3's tolerances, those of a shape phase 3 did not hold also by
      the plain version, and no Gram may go around the kernel.
+ 13. quantum chemistry: (a) in a child process with RENO_DTYPE=fp64 (a
+     non-zero exit fails the script), 2-site QC-DMRG of H2O/STO-3G
+     (tests/data/h2o_fcidump.txt: 14 spin-orbital sites, [5, 5] electrons,
+     two-component quantum numbers) at M=50 through read_fcidump / qc_model
+     / Mpo / Mps.random / optimize_mps, within 1e-8 of the published FCI
+     energy -75.008697516450, every real Gram through the f64 kernel (the
+     seconds of Mpo(model) and of each sweep, the MPO bond dimensions and
+     the launches by (batch, n) printed; a Gram shape phase 3 did not hold
+     held against the plain version); and (d) padding_seed_probe.py's
+     thermal case at seeds 2019, 0, 1 and 2, each under 1e-5 off the dense
+     RDM, the largest within 3x the smallest; (b) the same H2O run in fp32,
+     its lowest sweep energy within H2O_TOL_FP32 (the result's energy
+     evaluated in double precision printed); (c) the slice's small oracles
+     at the JAX tests' bounds (QC_BOUNDS): qc_model with Mpo and StackedMpo,
+     StackedMpo DMRG, OFS-S DMRG of the scheme-1 chain against GS_E and of
+     a paired-spin chain against its dense energy, TDVP-PS2 with OFS-S
+     against expm (each with at least one swap of try_swap_site),
+     variational_compress, DmrgFCISolver, read_fcidump; then phase 10(a)'s
+     MU-CMF fp32 deviation at seeds 2019, 0 and 1 (a record).
 A [summary] line repeats the run's times as JSON, so that the end of the
 output carries them, with the seconds of each phase and of the whole script.  The line before the last holds the kernel record as
 JSON (with the launches of each path: DMRG, SpinBosonDynamics,
 TransportKubo, ChargeDiffusionDynamics, the MU-VMF ThermalProp,
-state-averaged DMRG, SpectraZtCV); the last
+state-averaged DMRG, SpectraZtCV, QC-DMRG); the last
 line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
@@ -129,6 +152,7 @@ the operator that asked for them.
 import collections
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -202,6 +226,39 @@ EXCITED_BOUNDS = dict(nroots=1e-6, omega=1e-6, arpack=1e-5, tda=2e-3, lobpcg=1e-
 # fp64 (its last sweep)
 SA_REF = (0.11503893096837466, 0.11551480196055311)
 SA_TOL = 1e-5
+# phase 13: H2O/STO-3G QC-DMRG (tests/test_qc.py::test_qc_dmrg_h2o) against
+# the published FCI energy, nuclear repulsion included
+H2O_FCIDUMP = "tests/data/h2o_fcidump.txt"
+H2O_FCI = -75.008697516450
+QC_M = 50
+H2O_TOL_FP64 = 1e-8
+# 13(b) in fp32 gates the lowest sweep energy as 13(a) does.  A CPU fp32
+# rehearsal of the port (RENO_PLATFORM=cpu RENO_DTYPE=fp32 python3
+# qc_host_probe.py --seeds 2019 2 3 4 5 6 7) ends 1.9e-5 below the FCI
+# energy at the default seed and 1.9e-5 ... 5.8e-5 below at the others
+# (seeds 0 and 1 stall 2.39e-2 above, as in fp64).  The energy of the fp32
+# result evaluated in double precision is printed beside it (3.08e-6
+# below on the CPU: the fp32 rounding of the MPO's coefficients)
+H2O_TOL_FP32 = 1e-4
+# 13(c): the bounds of tests/test_qc.py, tests/test_mps.py and
+# tests/test_torch_qc.py (fp64), except where a CPU fp32 rehearsal of the
+# same runs could not meet them: the 3-orbital QC-DMRG 1e-8 (fp32: 1.34e-8
+# and 1.06e-7 stacked), variational_compress 1e-10 (fp32: 2.23e-5),
+# DmrgFCISolver 1e-8 (fp32: 2.46e-7), OFS-S DMRG of the paired spins 1e-10
+# (fp32: 8.18e-7) and TDVP-PS2 with OFS-S 1e-6 (fp32: 3.75e-5), set here to
+# 5e-6, 2e-4, 5e-6, 1e-5 and 5e-4
+QC_BOUNDS = dict(qc=5e-6, stacked_mpo=1e-4, ofs=1e-5, ofs_dense=1e-5, ofs_tdvp=5e-4,
+                 variational=2e-4, fci_solver=5e-6)
+# 13(d): padding_seed_probe.py's thermal case at these seeds of the port's
+# generator, each under PADDING_TOL, the largest within PADDING_SPREAD times
+# the smallest
+PADDING_SEEDS = (2019, 0, 1, 2)
+PADDING_TOL = 1e-5
+PADDING_SPREAD = 3
+# phase 3's tolerances relative to ||A||_F: eigenvalues, |V^T V - I|,
+# |AV - VL| (f32 ones grow as n / 288 past n = 288)
+TOL_F32 = dict(eig=1e-5, orth=1e-4, resid=1e-4)
+TOL_F64 = dict(eig=1e-11, orth=1e-12, resid=1e-11)
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): FP32 outside the
 # tensor cores, HBM3 bandwidth
 FP32_FLOPS = 67e12
@@ -322,19 +379,13 @@ def _check_eigh(tag, errors, tol):
     check(err_r < tol["resid"], f"{tag}: |AV - VL| = {err_r:.2e}·|A|")
 
 
-def phase_kernels():
-    import numpy as np
+def _phase3_cases():
+    """Phase 3's (shape, dtype, seed) cases: cases added after the first
+    runs draw from their own seeds (None: the shared stream), so the draws
+    after them (the clustered case, the timed input) stay those of earlier
+    runs."""
     import torch
 
-    from renormalizer_tpu_torch.ops.jacobi import (
-        MAX_EXTRA_SWEEPS, default_sweeps, jacobi_eigh, jacobi_eigh_reference)
-
-    tols = {torch.float32: dict(eig=1e-5, orth=1e-4, resid=1e-4),
-            torch.float64: dict(eig=1e-11, orth=1e-12, resid=1e-11)}
-    rng = np.random.default_rng(2019)
-    # (shape, dtype, seed): cases added after the first runs draw from their
-    # own seeds (None: the shared stream), so the draws after them (the
-    # clustered case, the timed input) stay those of earlier runs
     cases = [((n, n), dt, None) for dt in (torch.float32, torch.float64)
              for n in (16, 24, 96, 250, 288)]
     # batches at the masked path's width; 544 = l1 + l2 of a growth sweep's
@@ -360,8 +411,26 @@ def phase_kernels():
                   if size == 8 or n not in held]
     # phase 12's widest and most frequent shapes that no earlier case holds
     cases += [((b, n, n), torch.float32, 9000 + 10 * n + b) for b, n in EXCITED_PATH_GRAMS]
+    return cases
+
+
+def phase3_held():
+    """The (batch, n, itemsize) of every Gram shape phase 3 holds."""
+    return {(shape[0] if len(shape) == 3 else 1, shape[-1], dt.itemsize)
+            for shape, dt, _ in _phase3_cases()}
+
+
+def phase_kernels():
+    import numpy as np
+    import torch
+
+    from renormalizer_tpu_torch.ops.jacobi import (
+        MAX_EXTRA_SWEEPS, default_sweeps, jacobi_eigh, jacobi_eigh_reference)
+
+    tols = {torch.float32: TOL_F32, torch.float64: TOL_F64}
+    rng = np.random.default_rng(2019)
     main_err = None
-    for shape, dt, seed in cases:
+    for shape, dt, seed in _phase3_cases():
         a = _symmetric(rng if seed is None else np.random.default_rng(seed),
                        shape, dt)
         w, v = jacobi_eigh(a)
@@ -409,14 +478,16 @@ def phase_kernels():
     timed = {}
     cap = default_sweeps(torch.float32) + MAX_EXTRA_SWEEPS
     # the DMRG path's two widest shapes, the evolution path's most frequent
-    # one (78 of the 403 launches of phase 6(d)), and the Kubo path's widest
-    # (106) and three most frequent (8, 2, 25) of phase 9
+    # one (78 of the 403 launches of phase 6(d)), the Kubo path's widest
+    # (106) and three most frequent (8, 2, 25) of phase 9, and phase 12's
+    # widest and batched shapes (EXCITED_PATH_GRAMS)
     for shape in ((2, 288, 288), (1, 544, 544), (1, 48, 48), (1, 106, 106),
-                  (1, 8, 8), (1, 2, 2), (1, 25, 25)):
+                  (1, 8, 8), (1, 2, 2), (1, 25, 25),
+                  *((b, n, n) for b, n in EXCITED_PATH_GRAMS)):
         # the first timed input is drawn after the clustered case, as in
         # earlier runs; the others from their own seeds
         a = _symmetric(rng if shape[-1] == 288
-                       else np.random.default_rng(10 * shape[-1]),
+                       else np.random.default_rng(10 * shape[-1] + shape[0] - 1),
                        shape, torch.float32)
         plain_out = []
         # the plain version is timed in one call, without a warm-up: it is
@@ -824,6 +895,7 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
     try:
         jacobi_eigh.launches = 0
         trunc_device.LINALG_EIGH_GRAMS = 0
+        trunc_device.SVD_BLOCKS = 0
         backend.sync()
         t0 = time.perf_counter()
         job = SpinBosonDynamics(
@@ -833,13 +905,16 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
         backend.sync()
         construct_s = time.perf_counter() - t0
         launches, elsewhere = jacobi_eigh.launches, trunc_device.LINALG_EIGH_GRAMS
+        svd_blocks = trunc_device.SVD_BLOCKS
     finally:
         trunc_device.jacobi_eigh = jacobi_eigh
     print(f"{tag} constructor {construct_s:.3f} s: jacobi launches {launches}, "
-          f"Gram eigh elsewhere {elsewhere}; start bond dims "
+          f"Gram eigh elsewhere {elsewhere}, sector blocks of compress factored "
+          f"by torch.linalg.svd {svd_blocks}; start bond dims "
           f"{job.latest_mps.bond_dims}; real {not job.latest_mps.is_complex}",
           flush=True)
-    check(launches > 0, f"{tag}: the constructor never launched the Jacobi kernel")
+    # the constructor's compresses factor by SVD, not by a Gram eigh
+    check(svd_blocks > 0, f"{tag}: the constructor's compress factored no sector block")
     hist = grams.report(tag[:10], launches)
     if (nph, m_small) == (31, 48):
         unheld = sorted(set(hist) - {(1, n) for n in EVOLVE_PATH_GRAMS})
@@ -851,18 +926,22 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
     check(max(job.latest_mps.bond_dims) == m_small, f"{tag}: bonds did not expand")
     checks = StepChecks(tag, job.h_mpo, state_of=lambda j: j.latest_mps)
     checks(job)
+    trunc_device.SVD_BLOCKS = 0
     _, seconds = run_steps(
         tag, card, lambda j: j.evolve(evolve_dt=dt, nsteps=1), job, checks)
     complex_grams = trunc_device.LINALG_EIGH_GRAMS
+    step_svd_blocks = trunc_device.SVD_BLOCKS
     sigma_z = np.array(job.sigma_z)
     print(f"{tag} jacobi launches {jacobi_eigh.launches}, complex Gram eigh "
-          f"through torch.linalg.eigh {complex_grams}; sigma_z(t) "
-          f"{[round(float(x), 6) for x in sigma_z]}; bond dims "
+          f"through torch.linalg.eigh {complex_grams}, complex sector blocks of "
+          f"the steps' compresses factored by torch.linalg.svd {step_svd_blocks}; "
+          f"sigma_z(t) {[round(float(x), 6) for x in sigma_z]}; bond dims "
           f"{job.latest_mps.bond_dims}", flush=True)
     check(sigma_z[0] == 1.0, f"{tag}: sigma_z(0) = {sigma_z[0]}")
     check(np.isfinite(sigma_z).all() and np.abs(sigma_z).max() <= 1 + 1e-5,
           f"{tag}: sigma_z out of range: {sigma_z}")
-    check(complex_grams > 0, f"{tag}: no complex Gram was counted")
+    # the steps compress the complex state: by SVD, not by a Gram eigh
+    check(step_svd_blocks > 0, f"{tag}: the steps' compresses factored no sector block")
     timed["d"] = seconds[1:]
     if profile:
         phase_profile_step(card, tag[:10],
@@ -1064,6 +1143,7 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
     try:
         jacobi_eigh.launches = 0
         trunc_device.LINALG_EIGH_GRAMS = 0
+        trunc_device.SVD_BLOCKS = 0
         backend.sync()
         t0 = time.perf_counter()
         kubo = kubo_module.TransportKubo(
@@ -1074,6 +1154,7 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
         backend.sync()
         construct_s = time.perf_counter() - t0
         launches, elsewhere = jacobi_eigh.launches, trunc_device.LINALG_EIGH_GRAMS
+        svd_blocks = trunc_device.SVD_BLOCKS
     finally:
         kubo_module.ThermalProp = base
         trunc_device.jacobi_eigh = jacobi_eigh
@@ -1094,8 +1175,10 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
     check(tp.energies[-1] < tp.energies[0],
           f"{tag}: energy at beta/2 {tp.energies[-1]} not below {tp.energies[0]}")
     print(f"{tag}: jacobi launches {launches}, real Gram eigh elsewhere "
-          f"{elsewhere}", flush=True)
-    check(launches > 0, f"{tag}: the job never launched the Jacobi kernel")
+          f"{elsewhere}, sector blocks of compress factored by torch.linalg.svd "
+          f"{svd_blocks}", flush=True)
+    # the job's compresses factor by SVD, not by a Gram eigh
+    check(svd_blocks > 0, f"{tag}: the job's compress factored no sector block")
     check(elsewhere == 0, f"{tag}: {elsewhere} real Gram eigh went around the kernel")
     grams.report("[kubo]", launches)
     if m == 64:
@@ -1705,6 +1788,372 @@ def phase_excited_jobs(card, gram_tol, m=64):
     return launches, seconds
 
 
+def _qc_model(h1e, h2e, stacked=False):
+    """``qc_model`` of spin-orbital integrals: the model, and its MPO (a
+    StackedMpo of one Mpo per leading orbital with ``stacked``)."""
+    from renormalizer_tpu_torch import Model, Mpo
+    from renormalizer_tpu_torch.model.h_qc import qc_model
+    from renormalizer_tpu_torch.mps import StackedMpo
+
+    basis, ham_terms = qc_model(h1e, h2e, stacked=stacked)
+    if not stacked:
+        model = Model(basis, ham_terms)
+        return model, Mpo(model)
+    model = Model(basis, [t for terms in ham_terms for t in terms])
+    return model, StackedMpo([Mpo(Model(basis, terms)) for terms in ham_terms])
+
+
+def phase_qc_dmrg(tag, card, gram_tol, bound):
+    """Phase 13(a)/(b): 2-site QC-DMRG of H2O/STO-3G (H2O_FCIDUMP: 7 spatial
+    orbitals, 14 spin-orbital sites, [5, 5] electrons) at M=50 in the
+    working precision, as tests/test_qc.py and examples/qc_dmrg.py run it:
+    the lowest sweep energy plus the nuclear repulsion within ``bound`` of
+    the published FCI energy H2O_FCI (in fp64 the JAX test's gate; the fp32
+    result's energy evaluated in double precision printed beside it); every
+    real Gram through the kernel
+    in the working precision.  Prints the seconds of Mpo(model) and of each sweep,
+    the MPO's bond dimensions and the Jacobi launches by (batch, n); the
+    Grams of a shape phase 3 did not hold are held against the plain
+    version.  Returns the kernel launches and the sweep seconds."""
+    import numpy as np
+    import torch
+
+    from renormalizer_tpu_torch import Mps, optimize_mps
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.model.h_qc import read_fcidump
+    from renormalizer_tpu_torch.mps import gs, trunc_device
+    from renormalizer_tpu_torch.mps.mps import _double_mpo_twin, _retype
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+
+    h1e, h2e, nuc = read_fcidump(H2O_FCIDUMP, 7)
+    t0 = time.perf_counter()
+    model, mpo = _qc_model(h1e, h2e)
+    backend.sync()
+    mpo_s = time.perf_counter() - t0
+    check(model.nsite == 14, f"{tag} H2O model has {model.nsite} sites")
+    print(f"{tag} Mpo(model) of {len(model.ham_terms)} terms: {mpo_s:.2f} s "
+          f"({card}); MPO bond dims {mpo.bond_dims}", flush=True)
+    mps = Mps.random(model, [5, 5], QC_M, percent=1.0)
+    mps.optimize_config.procedure = [[QC_M, 0.4], [QC_M, 0.2], [QC_M, 0.1]] + [[QC_M, 0]] * 6
+    mps.optimize_config.method = "2site"
+
+    sweep_times = []
+    single_sweep = gs.single_sweep
+
+    def timed_sweep(*args, **kwargs):
+        backend.sync()
+        t = time.perf_counter()
+        out = single_sweep(*args, **kwargs)
+        backend.sync()
+        sweep_times.append(time.perf_counter() - t)
+        return out
+
+    grams = GramRecord(keep_grams=True)
+    gs.single_sweep = timed_sweep
+    trunc_device.jacobi_eigh = grams
+    try:
+        jacobi_eigh.launches = 0
+        trunc_device.LINALG_EIGH_GRAMS = 0
+        energies, opt = optimize_mps(mps, mpo)
+        backend.sync()
+        launches = jacobi_eigh.launches
+        elsewhere = trunc_device.LINALG_EIGH_GRAMS
+    finally:
+        gs.single_sweep = single_sweep
+        trunc_device.jacobi_eigh = jacobi_eigh
+    e_sweeps = min(float(np.min(np.asarray(x))) for x in energies) + nuc
+    wide = opt.copy()
+    _retype(wide, torch.float64)
+    e_wide = wide.expectation(_double_mpo_twin(mpo)) / wide.mp_norm ** 2 + nuc
+    print(f"{tag} energies per sweep + nuclear repulsion "
+          f"{[round(float(x) + nuc, 12) for x in energies]}", flush=True)
+    print(f"{tag} {len(sweep_times)} sweeps, seconds per sweep ({card}) "
+          f"{[round(t, 4) for t in sweep_times]}; total {sum(sweep_times):.2f} s; "
+          f"lowest sweep energy {e_sweeps:.12f} (FCI {H2O_FCI}, diff "
+          f"{e_sweeps - H2O_FCI:+.3e}); the result's energy in double precision "
+          f"{e_wide:.12f} (diff {e_wide - H2O_FCI:+.3e}); gated: sweeps, bound "
+          f"{bound:.0e}; bond dims {opt.bond_dims}; jacobi launches {launches}; "
+          f"Gram eigh elsewhere {elsewhere}", flush=True)
+    grams.report(tag, launches)
+    _hold_unheld(tag, grams, phase3_held(), gram_tol)
+    itemsize = torch.empty(0, dtype=backend.real_dtype).element_size()
+    check(launches > 0, f"{tag} never launched the Jacobi kernel")
+    check(elsewhere == 0, f"{tag} {elsewhere} Gram eigh went around the kernel")
+    check(set(grams.itemsizes) == {itemsize},
+          f"{tag} Grams of itemsizes {set(grams.itemsizes)}, not {itemsize}")
+    check(_all_finite(opt) and max(opt.bond_dims) <= QC_M, f"{tag} bad result")
+    check(abs(e_sweeps - H2O_FCI) < bound,
+          f"{tag} energy {e_sweeps} not within {bound} of {H2O_FCI}")
+    return launches, sweep_times, (e_sweeps - H2O_FCI, e_wide - H2O_FCI)
+
+
+def phase_qc_oracles():
+    """Phase 13(c): the quantum-chemistry slice's small oracles in the
+    working precision, at the JAX tests' bounds (QC_BOUNDS; those that are
+    fp64 bounds there set by a CPU fp32 rehearsal): tests/test_qc.py's
+    3-orbital QC-DMRG with Mpo and StackedMpo against the dense FCI energy;
+    tests/test_mps.py's StackedMpo DMRG (the Holstein fixture's terms split
+    in two), OFS-S on its scheme-1 chain, variational_compress against the
+    dense product and DmrgFCISolver's energy from its own RDMs; read_fcidump
+    of H2O_FCIDUMP against a plain parse of the file."""
+    import numpy as np
+
+    import scipy.linalg
+
+    from renormalizer_tpu_torch import (
+        BasisHalfSpin, CompressConfig, CompressCriteria, HolsteinModel, Model, Mol,
+        Mpo, Mps, Op, Phonon, Quantity)
+    from renormalizer_tpu_torch.model.h_qc import int_to_h, read_fcidump
+    from renormalizer_tpu_torch.mps import DmrgFCISolver, StackedMpo, trunc_device
+    from renormalizer_tpu_torch.mps import mpo as mpo_module
+    from renormalizer_tpu_torch.mps.gs import construct_mps_mpo, optimize_mps
+    from renormalizer_tpu_torch.utils import (
+        OFS, EvolveConfig, EvolveMethod, OptimizeConfig, constant)
+    from renormalizer_tpu_torch.utils.oracle import (
+        dense_hamiltonian, dense_operator, sector_indices)
+
+    def report(name, value, bound, t0):
+        print(f"[qc c] {name}: {value:.3e} (bound {bound:.0e}) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        check(np.isfinite(value) and value < bound, f"[qc c] {name}: {value}")
+
+    # tests/test_qc.py: random 3-orbital integrals, [1, 1] electrons
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((3, 3))
+    h = (h + h.T) / 2
+    c = rng.standard_normal((4, 3, 3))
+    c = (c + c.transpose(0, 2, 1)) / 2
+    h1e, h2e = int_to_h(h, np.einsum("mij,mkl->ijkl", c, c) * 0.2)
+    for stacked in (False, True):
+        t0 = time.perf_counter()
+        model, mpo = _qc_model(h1e, h2e, stacked)
+        hd = dense_hamiltonian(model)
+        sec = sector_indices(model, [1, 1])
+        e_fci = np.linalg.eigvalsh(hd[np.ix_(sec, sec)])[0]
+        mps = Mps.random(model, [1, 1], 16, percent=1.0)
+        mps.optimize_config = OptimizeConfig(
+            procedure=[[16, 0.4], [16, 0.2], [16, 0.1], [16, 0], [16, 0], [16, 0]])
+        mps.optimize_config.method = "2site"
+        energies, _ = optimize_mps(mps, mpo)
+        e = min(np.min(np.asarray(x)) for x in energies)
+        report(f"qc_model 3 orbitals stacked={stacked} |E - E_FCI|", abs(e - e_fci),
+               QC_BOUNDS["qc"], t0)
+
+    # tests/fixtures.py's 3-molecule Holstein model
+    j_matrix = np.array([[0.0, -0.1, -0.2], [-0.1, 0.0, -0.3],
+                         [-0.2, -0.3, 0.0]]) / constant.au2ev
+    ph_list = [Phonon([Quantity(w, "cm^{-1}")] * 2, [Quantity(0), Quantity(d, "a.u.")], 4)
+               for w, d in ((106.51, 30.1370), (1555.55, 8.7729))]
+    holstein = HolsteinModel([Mol(Quantity(2.67, "eV"), ph_list, 15.45)] * 3, j_matrix)
+    gs_e = 0.08401412 + holstein.gs_zpe
+    t0 = time.perf_counter()
+    half = len(holstein.ham_terms) // 2
+    stacked = StackedMpo([Mpo(holstein, holstein.ham_terms[:half]),
+                          Mpo(holstein, holstein.ham_terms[half:])])
+    mps, _ = construct_mps_mpo(holstein, 10, 1)
+    mps.optimize_config.procedure = [[10, 0.4], [20, 0.2], [30, 0.1], [30, 0], [30, 0]]
+    energies, _ = optimize_mps(mps.copy(), stacked)
+    report("StackedMpo DMRG |E - GS_E| / GS_E", abs(min(energies) - gs_e) / gs_e,
+           QC_BOUNDS["stacked_mpo"], t0)
+
+    # OFS through the procedure's compress configs (an integer entry would
+    # replace the config and drop ``ofs``, as in the JAX package): every swap
+    # that try_swap_site makes is counted, and the singular values of both
+    # orders come from compress_factors' device SVD (SVD_BLOCKS)
+    swaps = []
+    try_swap_site = mpo_module.Mpo.try_swap_site
+
+    def counting(self, new_model, swap_jw, algo="Hopcroft-Karp"):
+        if any(a.dofs != b.dofs for a, b in zip(self.model.basis, new_model.basis)):
+            swaps.append(1)
+        return try_swap_site(self, new_model, swap_jw, algo)
+
+    def ofs_procedure(ms):
+        return [[CompressConfig(CompressCriteria.fixed, max_bonddim=m, ofs=OFS.ofs_s), p]
+                for m, p in ms]
+
+    mpo_module.Mpo.try_swap_site = counting
+    try:
+        t0 = time.perf_counter()
+        swaps.clear()
+        blocks = trunc_device.SVD_BLOCKS
+        scheme1 = holstein.switch_scheme(1)
+        mps, mpo = construct_mps_mpo(scheme1, 10, 1)
+        mps.model = Model(mps.model.basis, mps.model.ham_terms)
+        mps.optimize_config.procedure = ofs_procedure(
+            [(10, 0.4), (20, 0.2), (30, 0.1), (40, 0), (40, 0)])
+        mps.optimize_config.method = "2site"
+        energies, opt = optimize_mps(mps.copy(), mpo)
+        dev = max(abs(energies[-1] - gs_e),
+                  abs(opt.expectation(Mpo(opt.model)) - gs_e)) / gs_e
+        check(swaps, "[qc c] OFS-S DMRG of the scheme-1 chain made no swap")
+        report(f"OFS-S DMRG, scheme-1 chain, {len(swaps)} swaps, "
+               f"{trunc_device.SVD_BLOCKS - blocks} SVD blocks, |E - GS_E| / GS_E "
+               "(last sweep and <H> of the reordered chain)", dev, QC_BOUNDS["ofs"], t0)
+
+        # spins i and i + 3 coupled, a weak field on each: in the order
+        # 0..5 every pair crosses the middle bond, so OFS has swaps to make
+        paired = [Op("sigma_z sigma_z", [i, i + 3], 1.0) for i in range(3)]
+        paired += [Op(f"sigma_{a} sigma_{b}", [i, i + 3], 0.5)
+                   for i in range(3) for a, b in (("+", "-"), ("-", "+"))]
+        paired += [Op("sigma_x", i, 0.05 * (i + 1)) for i in range(5)]
+        spins = Model([BasisHalfSpin(i) for i in range(6)], paired)
+        h = dense_hamiltonian(spins)
+        t0 = time.perf_counter()
+        swaps.clear()
+        mps = Mps.random(spins, 0, 8, percent=1.0)
+        mps.optimize_config = OptimizeConfig(
+            procedure=ofs_procedure([(4, 0.4), (4, 0.2)] + [(8, 0)] * 4))
+        mps.optimize_config.method = "2site"
+        energies, opt = optimize_mps(mps, Mpo(spins, algo="Hopcroft-Karp"))
+        e_dense = np.linalg.eigvalsh(h)[0]
+        dev = max(abs(min(energies) - e_dense),
+                  abs(opt.expectation(Mpo(opt.model)) - e_dense))
+        check(swaps, "[qc c] OFS-S DMRG of the paired spins made no swap")
+        report(f"OFS-S DMRG, paired spins, {len(swaps)} swaps, |E - E_dense| "
+               "(lowest sweep and <H> of the reordered chain)", dev,
+               QC_BOUNDS["ofs_dense"], t0)
+
+        # TDVP-PS2 with OFS-S from a product state against expm
+        t0 = time.perf_counter()
+        swaps.clear()
+        mps = Mps.hartree_product_state(spins, {i: i % 2 for i in range(6)})
+        psi = mps.todense().astype(complex)
+        mps.compress_config = CompressConfig(CompressCriteria.fixed, max_bonddim=8,
+                                             ofs=OFS.ofs_s)
+        mps.evolve_config = EvolveConfig(EvolveMethod.tdvp_ps2)
+        mps = mps.expand_bond_dimension(Mpo(spins), include_ex=False)
+        mpo = Mpo(spins, algo="Hopcroft-Karp")
+        for _ in range(8):
+            mps = mps.evolve(mpo, 0.1)
+        psi = scipy.linalg.expm(-1j * h * 0.8) @ psi
+        dev = max(abs(mps.expectation(Mpo(mps.model, Op("sigma_z", dof)))
+                      - np.real(psi.conj() @ dense_operator(spins, [Op("sigma_z", dof)])
+                                @ psi))
+                  for dof in range(6))
+        check(swaps, "[qc c] TDVP-PS2 with OFS-S made no swap")
+        report(f"TDVP-PS2 with OFS-S, paired spins, {len(swaps)} swaps, max over "
+               "DoFs |<sigma_z> - dense| after 8 steps of 0.1", dev,
+               QC_BOUNDS["ofs_tdvp"], t0)
+    finally:
+        mpo_module.Mpo.try_swap_site = try_swap_site
+
+    # tests/fixtures.py's exact_model
+    t0 = time.perf_counter()
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    exact = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
+    mpo = Mpo(exact)
+    small = Mps.random(exact, 1, 12)
+    small.compress_config = CompressConfig(CompressCriteria.fixed, max_bonddim=24)
+    dense_big = (mpo @ small).todense()
+    comp = small.variational_compress(mpo)
+    err = np.linalg.norm(comp.todense() - dense_big) / np.linalg.norm(dense_big)
+    report("variational_compress relative error", err, QC_BOUNDS["variational"], t0)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    h1 = rng.standard_normal((2, 2))
+    h1 = (h1 + h1.T) / 2
+    c = rng.standard_normal((3, 2, 2))
+    c = (c + c.transpose(0, 2, 1)) / 2
+    h2 = np.einsum("mij,mkl->ijkl", c, c) * 0.3
+    solver = DmrgFCISolver()
+    e, _ = solver.kernel(h1, h2, 2, (1, 1))
+    rdm1 = np.asarray(solver.make_rdm1(None, 2, (1, 1)))
+    rdm2 = np.asarray(solver.make_rdm2(None, 2, (1, 1)))
+    e_rdm = np.einsum("ij,ij->", h1, rdm1) + 0.5 * np.einsum("ijkl,ijkl->", h2, rdm2)
+    dev = max(abs(np.trace(rdm1) - 2), abs(e_rdm - e))
+    report("DmrgFCISolver |tr rdm1 - 2|, |E(rdm1, rdm2) - E|", dev, QC_BOUNDS["fci_solver"], t0)
+
+    t0 = time.perf_counter()
+    sh, aseri, nuc = read_fcidump(H2O_FCIDUMP, 7)
+    rows = np.loadtxt(H2O_FCIDUMP, skiprows=4)
+    h, eri = np.zeros((7, 7)), np.zeros((7,) * 4)
+    for val, p, q, r, s_ in rows:
+        p, q, r, s_ = (int(x) - 1 for x in (p, q, r, s_))
+        if r >= 0:
+            for i, j, k, l in ((p, q, r, s_), (q, p, r, s_), (p, q, s_, r), (q, p, s_, r)):
+                eri[i, j, k, l] = val
+        elif p >= 0:
+            h[p, q] = h[q, p] = val
+    sh_ref, aseri_ref = int_to_h(h, eri)
+    nuc_ref = rows[(rows[:, 1:] == 0).all(axis=1), 0]
+    dev = max(float(np.abs(sh - sh_ref).max()), float(np.abs(aseri - aseri_ref).max()),
+              abs(nuc - float(nuc_ref[-1])))
+    check(sh.shape == (14, 14) and aseri.shape == (14,) * 4, "[qc c] read_fcidump shapes")
+    report(f"read_fcidump of {H2O_FCIDUMP} against a plain parse (nuclear repulsion "
+           f"{nuc})", dev, 1e-15, t0)
+
+
+def phase_padding_seeds(tag, seeds, run):
+    """Phase 13(d): one result that starts from the port's expansion, at each
+    of ``seeds`` of the port's generator (``run``: a function of
+    padding_seed_probe.py).  Returns the values."""
+    from renormalizer_tpu_torch.backend import backend
+
+    values = []
+    default = backend._seed
+    try:
+        for seed in seeds:
+            backend._seed = seed
+            t0 = time.perf_counter()
+            values.append(run())
+            print(f"{tag} seed {seed}: {values[-1]:.3e} in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        backend._seed = default
+    return values
+
+
+def phase_qc_fp64(card):
+    """The fp64 part of phase 13, in a child process (RENO_DTYPE=fp64):
+    (a) the H2O QC-DMRG within 1e-8 of the FCI energy, and (d) the padding
+    fault's case of padding_seed_probe.py (10 TDVP-PS steps of beta/20 at
+    1500 K from the expanded MpDm of the 3-molecule, 3-level, J = 0.2 chain)
+    at PADDING_SEEDS: each under PADDING_TOL off the dense electron RDM, the
+    largest within PADDING_SPREAD times the smallest.  Prints one
+    ``[qc fp64]`` JSON line for the parent."""
+    import padding_seed_probe
+    from renormalizer_tpu_torch.backend import backend
+
+    check(not backend.is_32bits, "the fp64 child runs in fp32")
+    launches, sweeps, _ = phase_qc_dmrg("[qc a]", card, TOL_F64, H2O_TOL_FP64)
+    values = phase_padding_seeds("[qc d] thermal fp64, |e_rdm - dense|",
+                                 PADDING_SEEDS, padding_seed_probe.thermal)
+    spread = max(values) / min(values)
+    print(f"[qc d] largest over smallest {spread:.3f} (bound {PADDING_SPREAD}), "
+          f"largest {max(values):.3e} (bound {PADDING_TOL:.0e})", flush=True)
+    check(max(values) < PADDING_TOL, f"[qc d] deviations {values}")
+    check(spread < PADDING_SPREAD, f"[qc d] deviations {values} spread {spread}")
+    print("[qc fp64] " + json.dumps({"launches": launches, "sweep_seconds": sweeps,
+                                    "padding": values}), flush=True)
+
+
+def phase_qc(card, gram_tol):
+    """Phase 13: the fp64 child (13(a), 13(d)), then (b) the H2O QC-DMRG in
+    the card's default fp32, (c) the small oracles and the MU-CMF fp32
+    deviation of phase 10(a) at three seeds (a record, no gate)."""
+    import padding_seed_probe
+
+    child = subprocess.run(
+        [sys.executable, __file__, "--qc-fp64"], capture_output=True, text=True,
+        env={**os.environ, "RENO_DTYPE": "fp64"}, timeout=900)
+    sys.stdout.write(child.stdout)
+    sys.stdout.flush()
+    check(child.returncode == 0,
+          f"the fp64 child exited {child.returncode}: {child.stderr[-4000:]}")
+    result = json.loads([line for line in child.stdout.splitlines()
+                         if line.startswith("[qc fp64] ")][-1][len("[qc fp64] "):])
+    launches_32, sweeps_32, devs_32 = phase_qc_dmrg("[qc b]", card, gram_tol,
+                                                    H2O_TOL_FP32)
+    phase_qc_oracles()
+    phase_padding_seeds("[qc d] MU-CMF fp32 (phase 10(a)'s case), mean deviation "
+                        "(record, no gate)", (2019, 0, 1), padding_seed_probe.mu_cmf)
+    return ({"fp64": result["launches"], "fp32": launches_32},
+            {"fp64": result["sweep_seconds"], "fp32": sweeps_32,
+             "fp32_sweep_and_double_diffs": devs_32, "padding_fp64": result["padding"]})
+
+
 def phase_profile_step(card, tag, step):
     """Phase 7: one more evolution step (``step()``) under torch.profiler."""
     import torch
@@ -1799,6 +2248,10 @@ def main():
     if not torch.cuda.is_available():
         fail("no CUDA device visible")
     profile = "--profile" in sys.argv[1:]
+    if "--qc-fp64" in sys.argv[1:]:
+        # phase 13's child process (RENO_DTYPE=fp64)
+        phase_qc_fp64(phase_environment()[1])
+        return
     phase_s = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -1829,6 +2282,7 @@ def main():
                                 dts={"b": 1.0, "c": 20.0})
     timed("11", phase_excited_oracles)
     excited_launches, excited_s = timed("12", phase_excited_jobs, card, record["tol_f32"])
+    qc_launches, qc_s = timed("13", phase_qc, card, record["tol_f32"])
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -1846,21 +2300,28 @@ def main():
             f"{d:+.3e}" for d in excited_s["state_averaged_dmrg_root_diffs"]],
         "cv_zerot_serial_and_interleaved_seconds": [
             round(t, 4) for t in excited_s["cv_zerot_serial_and_interleaved"]],
+        "qc_sweep_seconds": {k: [round(t, 4) for t in qc_s[k]] for k in ("fp64", "fp32")},
+        "padding_fp64": [f"{v:.3e}" for v in qc_s["padding_fp64"]],
+        "qc_fp32_sweep_and_double_diffs": [
+            f"{d:+.3e}" for d in qc_s["fp32_sweep_and_double_diffs"]],
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
                     for k, v in record["timed"].items()},
+        "plain_ms": {str(k): round(v["plain"], 3) for k, v in record["timed"].items()},
         "phase_seconds": phase_s,
         "script_seconds": round(time.perf_counter() - _T0, 1)}), flush=True)
     by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
-               "transport_kubo": kubo_launches, **vmf_launches, **excited_launches}
+               "transport_kubo": kubo_launches, **vmf_launches, **excited_launches,
+               "qc": qc_launches["fp64"] + qc_launches["fp32"]}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
           f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
           f"constructor {kubo_launches}, ChargeDiffusionDynamics (b)-(c) "
           f"{vmf_launches['charge_diffusion']}, MU-VMF ThermalProp (d) "
           f"{vmf_launches['thermal_vmf']}, state-averaged DMRG (12a) "
           f"{excited_launches['state_averaged_dmrg']}, SpectraZtCV (12b) "
-          f"{excited_launches['cv_zerot']}", flush=True)
+          f"{excited_launches['cv_zerot']}, H2O QC-DMRG (13a fp64 + 13b fp32) "
+          f"{qc_launches['fp64']} + {qc_launches['fp32']}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,

@@ -14,7 +14,7 @@ fuses each loop into one ``lax.while_loop``; PyTorch runs eagerly, so each
 loop is a Python loop whose convergence test reads one scalar per
 iteration, a few microseconds on a local card.  The Davidson trial basis is
 a fixed (S, N) workspace with thick restart; the S x S subspace eigh is
-``torch.linalg.eigh``.
+``torch.linalg.eigh`` in double precision (:func:`eigh_wide`).
 """
 
 import os
@@ -40,6 +40,22 @@ _OUT_OF_SECTOR = 1e10
 # on the device (reference ``renormalizer/lib/davidson/davidson.py:515-560``).
 
 _MIN_DEVICE_SPACE = 4
+
+
+def eigh_wide(a: torch.Tensor):
+    """``torch.linalg.eigh`` of the Hermitian ``a`` computed in double
+    precision, returned in ``a``'s precision.  In single precision cuSOLVER's
+    eigh put the lowest eigenvalue of H2O/STO-3G's QC-DMRG local problems
+    (norm 84) 1.062e-3 off that of the same float32 matrix solved in
+    double (n 66; LAPACK's float32 eigh: up to 4.909e-5;
+    ``eigh_precision_probe.py``), and the sweeps reported energies 1.126e-3
+    below the FCI energy, 3.467e-5 below with this (``chip_smoke.py``
+    13(b); NVIDIA H100 80GB HBM3, 700 W)."""
+    if a.dtype in (torch.float64, torch.complex128):
+        return torch.linalg.eigh(a)
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    w, v = torch.linalg.eigh(a.to(wide))
+    return w.to(a.real.dtype), v.to(a.dtype)
 
 
 def _davidson_ws_budget() -> float:
@@ -80,7 +96,7 @@ def _davidson_core(hop, x0: torch.Tensor, hdiag: torch.Tensor, tol: float,
     for it in range(max_cycle):
         g = v[:size].conj() @ w[:size].T
         g = (g + g.conj().T) / 2
-        w_eig, c = torch.linalg.eigh(g)
+        w_eig, c = eigh_wide(g)
         c0 = c[:, 0]
         theta = w_eig[0].real
         x = c0 @ v[:size]
@@ -229,7 +245,7 @@ def davidson_multiroot(hop: Callable, x0_list, hdiag: torch.Tensor,
         # the huge preconditioner diagonal) must not give spurious zero modes
         ham = hop(torch.eye(n, dtype=dtype, device=x0.device)).T
         ham = ham + torch.diag(torch.where(hdiag > 1e9, hdiag, 0).to(dtype))
-        w_eig, v = torch.linalg.eigh((ham + ham.mH) / 2)
+        w_eig, v = eigh_wide((ham + ham.mH) / 2)
         k = min(nroots, n)
         return w_eig[:k].real, v[:, :k].T, 0
     v = torch.zeros((space, n), dtype=dtype, device=x0.device)
@@ -254,7 +270,7 @@ def davidson_multiroot(hop: Callable, x0_list, hdiag: torch.Tensor,
         # unused slots and the zero rows of _new_directions stay out
         empty = (idx >= size) | (torch.linalg.vector_norm(v, dim=1) < 0.5)
         g = g + torch.diag(torch.where(empty, pad, 0.0).to(g.dtype))
-        w_eig, c = torch.linalg.eigh(g)
+        w_eig, c = eigh_wide(g)
         cs = c[:, :nroots]
         thetas = w_eig[:nroots].real
         x = cs.T @ v
@@ -753,7 +769,7 @@ def lobpcg_standard(a_op: Callable, x: torch.Tensor, m: int = 100,
         r = _project_out(torch.cat([x, p], dim=1), r)
         xpr = torch.cat([x, p, r], dim=1)
         sas = xpr.mH @ a_op(xpr)
-        w_all, q = torch.linalg.eigh((sas + sas.mH) / 2)
+        w_all, q = eigh_wide((sas + sas.mH) / 2)
         theta_all, q = w_all.flip(0), q.flip(1)
         b = q[:, :k]
         b = b / torch.linalg.vector_norm(b, dim=0, keepdim=True)

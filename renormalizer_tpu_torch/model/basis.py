@@ -4,10 +4,12 @@ Each basis knows its DoF name(s), dimension ``nbas``, per-state quantum
 numbers ``sigmaqn`` (shape ``(nbas, qn_size)``) and can evaluate the dense
 matrix of any supported operator symbol via :meth:`BasisSet.op_mat`.
 
-Numpy copy of ``renormalizer_tpu/model/basis.py`` holding the bases that
-:class:`HolsteinModel` builds: ``BasisSHO``, ``BasisMultiElectronVac`` and
-``BasisSimpleElectron``.  The symbol tables follow the reference
-``renormalizer/model/basis.py`` exactly.
+Numpy copy of ``renormalizer_tpu/model/basis.py``.  The supported symbol
+tables follow the reference exactly — see ``renormalizer/model/basis.py``
+(BasisSHO :110-339, BasisHopsBoson :342-384, BasisSineDVR :387-752,
+BasisMultiElectron :755-810, BasisMultiElectronVac :813-879,
+BasisSimpleElectron :882-929, BasisHalfSpin :932-996, BasisDummy
+:999-1018).
 
 These run on the host once at model-construction time; the resulting dense
 matrices become MPO site tensors on the backend's device.
@@ -296,6 +298,339 @@ class BasisSHO(BasisSet):
         )
 
 
+class BasisHopsBoson(BasisSet):
+    r"""Bosonic basis with HOPS ladder convention
+    (reference ``model/basis.py:342-384``):
+
+    .. math::
+        \tilde{b}^\dagger |n\rangle = (n+1)|n+1\rangle, \quad
+        \tilde{b} |n\rangle = |n-1\rangle
+    """
+
+    is_phonon = True
+
+    def __init__(self, dof, nbas):
+        super().__init__(dof, nbas, [0] * nbas)
+
+    def op_mat(self, op: Union[Op, str]):
+        if not isinstance(op, Op):
+            op = Op(op, None)
+        sym = op.symbol
+        n = self.nbas
+        if sym == r"b^\dagger b":
+            mat = np.diag(np.arange(n, dtype=float))
+        elif sym == r"\tilde{b}^\dagger":
+            mat = np.diag(np.arange(1, n, dtype=float), k=-1)
+        elif sym == r"\tilde{b}":
+            mat = np.diag(np.ones(n - 1), k=1)
+        elif sym == "I":
+            mat = np.eye(n)
+        else:
+            raise ValueError(f"op_symbol:{sym} is not supported.")
+        return mat * op.factor
+
+    def copy(self, new_dof):
+        return self.__class__(new_dof, self.nbas)
+
+
+class BasisSineDVR(BasisSet):
+    r"""Sine-DVR (particle-in-a-box) basis for vibrational / angular /
+    dissociative modes.  Phys. Rep. 324, 1-105 (2000).
+    Reference ``model/basis.py:387-752``.
+
+    .. math::
+        \psi_j(x) = \sqrt{2/L} \sin(j\pi(x-x_0)/L), \quad
+        x_\alpha = x_0 + \alpha L/(N+1)
+
+    Parameters
+    ----------
+    dof : hashable
+    nbas : int
+        number of grid points
+    xi, xf : float
+        leftmost and rightmost grid points
+    endpoint : bool
+        if False, ``x_0 = xi`` and ``x_{N+1} = xf``; else ``x_1 = xi``,
+        ``x_N = xf``.
+    """
+
+    is_phonon = True
+
+    def __init__(self, dof, nbas, xi, xf, endpoint=False, quadrature=False, dvr=False):
+        assert xi < xf
+        if endpoint:
+            interval = (xf - xi) / (nbas - 1)
+            xi -= interval
+            xf += interval
+        self.xi, self.xf = xi, xf
+        self.L = xf - xi
+        super().__init__(dof, nbas, [0] * nbas)
+        self._depth = 0
+        j = np.arange(1, nbas + 1)
+        self.dvr_x = xi + j * self.L / (nbas + 1)
+        self.dvr_v = np.sqrt(2 / (nbas + 1)) * np.sin(
+            np.outer(j, j) * np.pi / (nbas + 1)
+        )
+        self.quadrature = quadrature
+        self.dvr = dvr
+
+    def __str__(self):
+        return f"BasisSineDVR(xi: {self.xi}, xf: {self.xf}, nbas: {self.nbas})"
+
+    # matrix elements over u = x - xi on [0, L]; all analytic.
+    def _I(self):
+        return np.eye(self.nbas)
+
+    def _jk_grid(self):
+        j = np.arange(1, self.nbas + 1)
+        return np.meshgrid(j, j, indexing="ij")
+
+    def _u(self):
+        """<j|u|k>"""
+        j, k = self._jk_grid()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            a1 = (j + k) * np.pi / self.L
+            a2 = (j - k) * np.pi / self.L
+            odd = (j + k) % 2 == 1
+            res = np.where(odd, -2 / a1 ** 2 + 2 / np.where(odd, a2, 1) ** 2, 0.0)
+        res = np.where(j == k, -0.5 * self.L ** 2, res)
+        return -res / self.L
+
+    def _uu(self):
+        """<j|u^2|k>"""
+        j, k = self._jk_grid()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            a1 = (j + k) * np.pi / self.L
+            a2safe = np.where(j == k, 1.0, (j - k) * np.pi / self.L)
+            odd = (j + k) % 2 == 1
+            res = np.where(
+                odd,
+                2 * self.L * (-1 / a1 ** 2 + 1 / a2safe ** 2),
+                2 * self.L * (1 / a1 ** 2 - 1 / a2safe ** 2),
+            )
+        res = np.where(j == k, 2 * self.L / a1 ** 2 - self.L ** 3 / 3, res)
+        return -res / self.L
+
+    def _uuu(self):
+        """<j|u^3|k>"""
+        j, k = self._jk_grid()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            a1 = (j + k) * np.pi / self.L
+            a2safe = np.where(j == k, 1.0, (j - k) * np.pi / self.L)
+            odd = (j + k) % 2 == 1
+            res = np.where(
+                odd,
+                -3 * self.L ** 2 / a1 ** 2 + 12 / a1 ** 4
+                + 3 * self.L ** 2 / a2safe ** 2 - 12 / a2safe ** 4,
+                3 * self.L ** 2 / a1 ** 2 - 3 * self.L ** 2 / a2safe ** 2,
+            )
+        res = np.where(j == k, 3 * self.L ** 2 / a1 ** 2 - self.L ** 4 / 4, res)
+        return -res / self.L
+
+    def _du(self):
+        """<j|d/du|k> (antisymmetric)"""
+        j, k = self._jk_grid()
+        odd = (j + k) % 2 == 1
+        with np.errstate(divide="ignore", invalid="ignore"):
+            denom = np.where(j == k, 1, j ** 2 - k ** 2)
+            mat = np.where(odd, 4 * j * k / self.L / denom, 0.0)
+        return mat
+
+    def _udu(self):
+        """<j|u d/du|k>"""
+        j, k = self._jk_grid()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            a1 = (j + k) * np.pi / self.L
+            a2safe = np.where(j == k, 1.0, (j - k) * np.pi / self.L)
+            odd = (j + k) % 2 == 1
+            res = np.where(
+                odd,
+                self.L / a1 + self.L / a2safe,
+                -self.L / a1 - self.L / a2safe,
+            )
+        res = np.where(j == k, -self.L / a1, res)
+        return k * np.pi / self.L ** 2 * res
+
+    def _uudu(self):
+        """<j|u^2 d/du|k>"""
+        j, k = self._jk_grid()
+        with np.errstate(divide="ignore", invalid="ignore"):
+            a1 = (j + k) * np.pi / self.L
+            a2safe = np.where(j == k, 1.0, (j - k) * np.pi / self.L)
+            odd = (j + k) % 2 == 1
+            res = np.where(
+                odd,
+                -4 / a1 ** 3 + self.L ** 2 / a1 - 4 / a2safe ** 3 + self.L ** 2 / a2safe,
+                -self.L ** 2 / a1 - self.L ** 2 / a2safe,
+            )
+        res = np.where(j == k, -self.L ** 2 / a1, res)
+        return k * np.pi / self.L ** 2 * res
+
+    def _eigene(self):
+        """particle-in-box eigenenergies (unit mass)"""
+        return np.pi ** 2 * np.arange(1, self.nbas + 1) ** 2 / self.L ** 2 / 2
+
+    def op_mat(self, op: Union[Op, str]):
+        if not isinstance(op, Op):
+            op = Op(op, None)
+        sym = op.symbol.replace("partialx", "dx")
+        self._depth += 1
+        try:
+            mat = self._op_mat_body(sym)
+        finally:
+            self._depth -= 1
+        if self.dvr and self._depth == 0:
+            mat = self.dvr_v.T @ mat @ self.dvr_v
+        return mat * op.factor
+
+    def _op_mat_body(self, sym):
+        xi = self.xi
+        if sym == "I":
+            return self._I()
+        if sym in ("x", "x^1"):
+            return self._I() * xi + self._u()
+        if sym == "x^2":
+            return self._I() * xi ** 2 + 2 * xi * self._u() + self._uu()
+        if sym == "x^3":
+            return (
+                self._I() * xi ** 3 + 3 * xi ** 2 * self._u()
+                + 3 * xi * self._uu() + self._uuu()
+            )
+        parts = sym.split(" ")
+        if set(parts) == {"x"}:
+            return self._op_mat_body(f"x^{len(parts)}")
+        if sym == "dx":
+            return self._du()
+        if sym in ("dx^2", "dx dx"):
+            return -self._op_mat_body("p^2")
+        if sym == "p":
+            return self._du() * -1.0j
+        if sym == "p^2":
+            return self._I() * (self._eigene() * 2)[None, :]
+        if sym == "x dx":
+            return self._du() * xi + self._udu()
+        if sym == "x^2 dx":
+            return self._uudu() + 2 * xi * self._udu() + xi ** 2 * self._du()
+        if sym == "x^2 p^2":
+            tmp = self._I() * xi ** 2 + 2 * xi * self._u() + self._uu()
+            return tmp * (self._eigene() * 2)[None, :]
+        if sym == "x^2 dx^2":
+            return -self._op_mat_body("x^2 p^2")
+        if sym == "x p^2":
+            return (self._I() * xi + self._u()) * (self._eigene() * 2)[None, :]
+        if sym == "x dx^2":
+            return -self._op_mat_body("x p^2")
+        if sym == "x^3 p^2":
+            tmp = (
+                self._I() * xi ** 3 + 3 * xi ** 2 * self._u()
+                + 3 * xi * self._uu() + self._uuu()
+            )
+            return tmp * (self._eigene() * 2)[None, :]
+        if sym == "x^3 dx^2":
+            return -self._op_mat_body("x^3 p^2")
+
+        # fall back to DVR-diagonal potentials or explicit quadrature
+        logger.warning("Note that the quadrature part is not fully tested!")
+        expr_sym = "*".join(sym.split())
+        if "dx" not in expr_sym:
+            if self.dvr:
+                import sympy as sp
+
+                x = sp.symbols("x")
+                func = sp.lambdify(x, expr_sym.replace("^", "**"), "numpy")
+                return self.dvr_v @ np.diag(func(self.dvr_x)) @ self.dvr_v.T
+            if self.quadrature:
+                return self.quad(expr_sym)
+            raise ValueError(
+                f"op_symbol:{expr_sym} is not supported. "
+                "You can try dvr or explicit quadrature"
+            )
+        if self.quadrature:
+            return self.quad(expr_sym)
+        raise ValueError(
+            f"op_symbol:{expr_sym} is not supported. You can try explicit quadrature"
+        )
+
+    @property
+    def eigenfunc(self):
+        return "sqrt(2/sL) * sin((sibas+1)*pi*(x-sxi)/sL)"
+
+    def quad(self, expr):
+        """Numerical quadrature <bra| expr |ket>, with d/dx factors applied
+        symbolically (reference ``model/basis.py:624-651``)."""
+        import sympy as sp
+        import scipy.integrate
+
+        x, sL, sxi, sibas, sjbas = sp.symbols("x sL sxi sibas sjbas")
+        bra = self.eigenfunc
+        ket = self.eigenfunc.replace("ibas", "jbas")
+        pieces = "*".join((bra, expr, ket)).split("dx")
+        pieces = [s.strip("*").replace("^", "**") for s in pieces]
+        if len(pieces) == 1:
+            sym_expr = sp.sympify(pieces[0])
+        else:
+            sym_expr = sp.sympify(pieces[-1])
+            for s in pieces[::-1][1:]:
+                sym_expr = sp.diff(sym_expr, x)
+                if s != "":
+                    sym_expr = sp.sympify(s) * sym_expr
+        sym_expr = sym_expr.subs({sL: self.L, sxi: self.xi})
+        func = sp.lambdify([x, sibas, sjbas], sym_expr, "numpy")
+        mat = np.zeros((self.nbas, self.nbas))
+        for i in range(self.nbas):
+            for j in range(self.nbas):
+                val, _ = scipy.integrate.quad(
+                    lambda xx: func(xx, i, j), self.xi, self.xf
+                )
+                mat[i, j] = val
+        return mat
+
+    def copy(self, new_dof):
+        return self.__class__(new_dof, self.nbas, xi=self.xi, xf=self.xf)
+
+
+class BasisMultiElectron(BasisSet):
+    r"""Multiple electronic states sharing one site
+    (reference ``model/basis.py:755-810``).  Basis order follows ``dof``.
+    """
+
+    is_electron = True
+    multi_dof = True
+
+    def __init__(self, dof, sigmaqn: List):
+        assert len(dof) == len(sigmaqn)
+        self.dof_name_map = {name: i for i, name in enumerate(dof)}
+        super().__init__(dof, len(dof), sigmaqn)
+
+    def op_mat(self, op: Op):
+        syms = op.split_symbol
+        if len(syms) == 1:
+            if syms[0] == "I":
+                return np.eye(self.nbas) * op.factor
+            if syms[0] in ("a", r"a^\dagger"):
+                raise ValueError(
+                    f"op_symbol:{syms} is not supported. Try use BasisMultiElectronVac."
+                )
+            raise ValueError(f"op_symbol:{syms} is not supported")
+        if len(syms) == 2:
+            if syms == ["I", "I"]:
+                return np.eye(self.nbas) * op.factor
+            i = self.dof_name_map[op.dofs[0]]
+            j = self.dof_name_map[op.dofs[1]]
+            mat = np.zeros((self.nbas, self.nbas))
+            if syms[0] == r"a^\dagger" and syms[1] == "a":
+                mat[int(i), int(j)] = 1.0
+            elif syms[0] == "a" and syms[1] == r"a^\dagger":
+                mat[int(j), int(i)] = 1.0
+            else:
+                raise ValueError(f"op_symbol:{syms} is not supported")
+            return mat * op.factor
+        raise ValueError(f"op_symbol:{syms} is not supported")
+
+    def copy(self, new_dof):
+        return self.__class__(new_dof, self.sigmaqn)
+
+
 class BasisMultiElectronVac(BasisSet):
     r"""Multi-electron basis including the vacuum state at index 0
     (reference ``model/basis.py:813-879``).  sigmaqn is ``[0, 1, 1, ...]``.
@@ -445,3 +780,23 @@ class BasisHalfSpin(BasisSet):
 
     def copy(self, new_dof):
         return self.__class__(new_dof, self.sigmaqn)
+
+
+class BasisDummy(BasisSet):
+    """Placeholder basis supporting only the identity
+    (reference ``model/basis.py:999-1018``)."""
+
+    def __init__(self, dof, nbas=1, sigmaqn: List = None):
+        if sigmaqn is None:
+            sigmaqn = [0] * nbas
+        super().__init__(dof, nbas, sigmaqn)
+
+    def op_mat(self, op: Union[Op, str]):
+        if not isinstance(op, Op):
+            op = Op(op, None)
+        if op.split_symbol == ["I"]:
+            return np.eye(1) * op.factor
+        raise ValueError(f"op_symbol:{op.split_symbol} is not supported")
+
+    def copy(self, new_dof):
+        return self.__class__(new_dof, self.nbas, self.sigmaqn)

@@ -1,7 +1,7 @@
 r"""Model classes binding basis sets and sum-of-product Hamiltonians.
 
-Numpy copy of ``renormalizer_tpu/model/model.py`` holding ``Model``,
-``HolsteinModel``, ``SpinBosonModel`` and ``TI1DModel``.
+Numpy copy of ``renormalizer_tpu/model/model.py`` (reference
+``renormalizer/model/model.py:18-543``).
 """
 
 import logging
@@ -12,14 +12,14 @@ import numpy as np
 
 from renormalizer_tpu_torch.model.basis import (
     BasisSet,
-    BasisHalfSpin,
     BasisSHO,
     BasisSimpleElectron,
     BasisMultiElectronVac,
+    BasisHalfSpin,
 )
 from renormalizer_tpu_torch.model.mol import Mol
-from renormalizer_tpu_torch.model.op import Op, OpSum
 from renormalizer_tpu_torch.model.phonon import Phonon
+from renormalizer_tpu_torch.model.op import Op, OpSum
 from renormalizer_tpu_torch.utils import Quantity, cached_property
 
 logger = logging.getLogger(__name__)
@@ -364,3 +364,30 @@ class TI1DModel(Model):
                     new_dofs.append((f"cell{cell_id}", old_dof[1]))
                 full_ham.append(Op(op.symbol, new_dofs, op.factor, op.qn_list))
         super().__init__(full_basis, full_ham)
+
+
+def load_from_dict(param, scheme, lam: bool):
+    """Build a HolsteinModel from a YAML-style parameter dict
+    (reference ``model.py:523-533``)."""
+    temperature = Quantity(*param["temperature"])
+    ph_list = [
+        Phonon.simplest_phonon(
+            Quantity(*omega), Quantity(*displacement), temperature=temperature, lam=lam
+        )
+        for omega, displacement in param["ph modes"]
+    ]
+    j_constant = Quantity(*param["j constant"])
+    model = HolsteinModel(
+        [Mol(Quantity(0), ph_list)] * param["mol num"], j_constant, scheme
+    )
+    return model, temperature
+
+
+def heisenberg_ops(nspin: int) -> List[Op]:
+    """Open-chain Heisenberg coupling terms (reference ``model.py:536-543``)."""
+    terms = []
+    for i in range(nspin - 1):
+        terms.append(Op("sigma_z sigma_z", [i, i + 1], 1.0 / 4))
+        terms.append(Op("sigma_+ sigma_-", [i, i + 1], 1.0 / 2))
+        terms.append(Op("sigma_- sigma_+", [i, i + 1], 1.0 / 2))
+    return terms

@@ -3,18 +3,25 @@ r"""DMRG ground-state and state-averaged excited-state optimization.
 Port of ``optimize_mps`` / ``single_sweep`` of ``renormalizer_tpu/mps/gs.py``
 (reference ``renormalizer/mps/gs.py:34-576``).  Each site update solves the
 local problem in the qn-masked full local space: a dense ``torch.linalg.eigh``
-for local problems under 1000 elements or with ``algo="direct"``, else the
-Davidson of ``lib/solvers.py`` (one root: ``davidson_fused``; several:
-``davidson_multiroot``), scipy's ``eigsh`` over the device matvec
+(in double precision, ``eigh_wide``) for local problems under 1000 elements
+or with ``algo="direct"``, else the Davidson of ``lib/solvers.py`` (one
+root: ``davidson_fused``; several: ``davidson_multiroot``), scipy's ``eigsh`` over the device matvec
 (``algo="arpack"``) or LOBPCG on ``sigma - H`` (``"lobpcg"``, and
 ``"primme"``, which the JAX package also routes there).  ``omega`` targets
 the eigenstate nearest to it by optimizing (H - omega)^2 with two-layer
 environments.  Several roots truncate the averaged density matrix
-(``Mps._update_mps`` with a list).  The per-site energies stay on the device
-until the sweep ends.
+(``Mps._update_mps`` with a list).  A :class:`StackedMpo` keeps one
+``Environ`` per term and sums the terms' hops (and dense matrices) in the
+eigensolver.  With ``compress_config.ofs`` each update may swap its two DoFs
+and the MPO follows (``Mpo.try_swap_site``).  The per-site energies stay on
+the device until the sweep ends.  :class:`DmrgFCISolver` is the PySCF-style
+FCI solver on ``model.h_qc.qc_model`` (gs.py:496-615 of the JAX package).
 """
 
+import itertools
 import logging
+from collections import deque
+from functools import partial, reduce
 from typing import List, Tuple
 
 import numpy as np
@@ -22,12 +29,21 @@ import torch
 
 from renormalizer_tpu_torch.backend import backend
 from renormalizer_tpu_torch.lib.solvers import (
+    davidson,
     davidson_fused,
     davidson_multiroot,
+    eigh_wide,
     lobpcg_standard,
 )
+from renormalizer_tpu_torch.model import Model, Op
+from renormalizer_tpu_torch.model.h_qc import (
+    generate_ladder_operator,
+    int_to_h,
+    qc_model,
+    simplify_op,
+)
 from renormalizer_tpu_torch.mps.lib import Environ, cvec2cmat
-from renormalizer_tpu_torch.mps.mpo import Mpo
+from renormalizer_tpu_torch.mps.mpo import Mpo, StackedMpo
 from renormalizer_tpu_torch.mps.mps import Mps
 from renormalizer_tpu_torch.mps.svd_qn import get_qn_mask
 from renormalizer_tpu_torch.ops.contract import (
@@ -68,8 +84,12 @@ def optimize_mps(mps: Mps, mpo: Mpo, omega: float = None) -> Tuple[List, Mps]:
 
     compress_config_bk = mps.compress_config
     if omega is not None:
+        if isinstance(mpo, StackedMpo):
+            raise NotImplementedError("StackedMpo + omega is not implemented yet")
         mpo = mpo.add(Mpo.identity(mpo.model).scale(-omega))
         environ = Environ(mps, [mpo, mpo], env)
+    elif isinstance(mpo, StackedMpo):
+        environ = [Environ(mps, item, env) for item in mpo.mpos]
     else:
         environ = Environ(mps, mpo, env)
 
@@ -118,9 +138,9 @@ def optimize_mps(mps: Mps, mpo: Mpo, omega: float = None) -> Tuple[List, Mps]:
     return macro_iteration_result, (roots if isinstance(res_mps, list) else roots[0])
 
 
-def single_sweep(mps: Mps, mpo: Mpo, environ: Environ, omega, percent,
-                 last_opt_e_idx):
-    """One DMRG micro sweep (reference ``gs.py:174-304``)."""
+def single_sweep(mps: Mps, mpo, environ, omega, percent, last_opt_e_idx):
+    """One DMRG micro sweep (reference ``gs.py:174-304``); a
+    :class:`StackedMpo` comes with a list of environments, one per term."""
     method = mps.optimize_config.method
     nroots = mps.optimize_config.nroots
     averaged_ms = []
@@ -145,13 +165,20 @@ def single_sweep(mps: Mps, mpo: Mpo, environ: Environ, omega, percent,
             lidx, cidx, ridx = imps - 2, [imps - 1, imps], imps + 1
         logger.debug(f"optimize site: {cidx}")
 
-        ltensor = environ.GetLR("L", lidx, mps, operator, method=lmethod)
-        rtensor = environ.GetLR("R", ridx, mps, operator, method=rmethod)
+        if isinstance(mpo, StackedMpo):
+            ltensor = [env_i.GetLR("L", lidx, mps, mpo_i, method=lmethod)
+                       for env_i, mpo_i in zip(environ, mpo.mpos)]
+            rtensor = [env_i.GetLR("R", ridx, mps, mpo_i, method=rmethod)
+                       for env_i, mpo_i in zip(environ, mpo.mpos)]
+            cmo = [[mpo_i[idx] for idx in cidx] for mpo_i in mpo.mpos]
+        else:
+            ltensor = environ.GetLR("L", lidx, mps, operator, method=lmethod)
+            rtensor = environ.GetLR("R", ridx, mps, operator, method=rmethod)
+            cmo = [mpo[idx] for idx in cidx]
 
         qnbigl, qnbigr, qnmat = mps._get_big_qn(cidx)
         qn_mask = get_qn_mask(qnmat, mps.qntot)
         cshape = qn_mask.shape
-        cmo = [mpo[idx] for idx in cidx]
 
         if np.prod(cshape) < 1000 or mps.optimize_config.algo == "direct":
             e, c = eigh_direct(mps, qn_mask, ltensor, rtensor, cmo, omega)
@@ -192,6 +219,8 @@ def single_sweep(mps: Mps, mpo: Mpo, environ: Environ, omega, percent,
                     res_mps[iroot]._update_mps(
                         cstruct[iroot], cidx, qnbigl, qnbigr, percent)
         averaged_ms = mps._update_mps(cstruct, cidx, qnbigl, qnbigr, percent)
+        if mps.compress_config.ofs is not None:
+            mpo.try_swap_site(mps.model, mps.compress_config.ofs_swap_jw)
 
     mps._switch_direction()
     return _realize_energies(micro_iteration_result, nroots), res_mps
@@ -225,14 +254,27 @@ def _mask_index(qn_mask) -> torch.Tensor:
     return torch.as_tensor(np.nonzero(qn_mask.ravel())[0], device=backend.device)
 
 
+def _stacked(ltensor) -> bool:
+    # a StackedMpo's update carries one environment pair per term
+    return isinstance(ltensor, list)
+
+
+def _terms(ltensor, rtensor, cmo):
+    """(L, R, W) of each term: one for an Mpo, several for a StackedMpo."""
+    if _stacked(ltensor):
+        return list(zip(ltensor, rtensor, cmo))
+    return [(ltensor, rtensor, cmo)]
+
+
 def eigh_direct(mps, qn_mask, ltensor, rtensor, cmo, omega=None):
-    """Dense masked effective Hamiltonian, diagonalized whole
-    (reference ``gs.py:307-369``)."""
-    ham = hop_dense(ltensor, rtensor, cmo, twolayer=omega is not None)
+    """Dense masked effective Hamiltonian (the sum of the terms' for a
+    :class:`StackedMpo`), diagonalized whole (reference ``gs.py:307-369``)."""
     idx = _mask_index(qn_mask)
     dim = qn_mask.size
-    ham = ham.reshape(dim, dim)[idx][:, idx]
-    w, v = torch.linalg.eigh(ham * mps.optimize_config.inverse)
+    ham = sum(hop_dense(lt, rt, cm, twolayer=omega is not None).reshape(dim, dim)
+              for lt, rt, cm in _terms(ltensor, rtensor, cmo))
+    ham = ham[idx][:, idx]
+    w, v = eigh_wide(ham * mps.optimize_config.inverse)
     nroots = mps.optimize_config.nroots
     if nroots == 1:
         return w[0], sign_fix(v[:, 0])
@@ -243,16 +285,21 @@ def eigh_direct(mps, qn_mask, ltensor, rtensor, cmo, omega=None):
 def eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess):
     """Iterative eigensolve in the qn-masked full local space
     (reference ``gs.py:486-576``); returns the energy (energies) and the
-    flat full-space coefficient (a list of them for several roots)."""
+    flat full-space coefficient (a list of them for several roots).  For a
+    :class:`StackedMpo` the matvec is the sum of the terms' hops and the
+    preconditioner the sum of their diagonals (``func_sum``,
+    gs.py:313-349 of the JAX package)."""
     inverse = mps.optimize_config.inverse
     nroots = mps.optimize_config.nroots
     algo = mps.optimize_config.algo
     twolayer = omega is not None
     cshape = qn_mask.shape
     mask = torch.as_tensor(qn_mask.ravel(), device=backend.device)
-    expr = hop_expr(ltensor, rtensor, cmo, cshape, twolayer)
+    terms = _terms(ltensor, rtensor, cmo)
+    exprs = [hop_expr(lt, rt, cm, cshape, twolayer) for lt, rt, cm in terms]
+    expr = exprs[0] if len(exprs) == 1 else (lambda c: sum(e(c) for e in exprs))
     # the random guesses of extra roots come from numpy (float64)
-    dtype = torch.promote_types(ltensor.dtype, rtensor.dtype)
+    dtype = reduce(torch.promote_types, [t.dtype for lt, rt, _ in terms for t in (lt, rt)])
     for g in cguess:
         if isinstance(g, torch.Tensor):
             dtype = torch.promote_types(dtype, g.dtype)
@@ -280,6 +327,16 @@ def eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess):
             f"eigensolver algo={algo} is not available; use 'davidson', "
             "'arpack', 'lobpcg', 'primme' or 'direct'")
     tol = 1e-5 if backend.is_32bits else 1e-10
+    hdiag = None
+    if _stacked(ltensor) or nroots > 1:
+        hdiag = sum(hop_diag(lt, rt, cm, twolayer).reshape(-1)
+                    for lt, rt, cm in terms) * inverse
+        hdiag = torch.where(mask, hdiag, 1e10)
+    if nroots == 1 and _stacked(ltensor):
+        e, c, niter = davidson(hop, torch.where(mask, guesses[0], 0), hdiag,
+                               tol=tol, max_cycle=100)
+        logger.debug(f"use davidson, HC hops: {niter}")
+        return e, sign_fix(c)
     if nroots == 1:
         formula, operands = hop_spec(ltensor, rtensor, cmo, cshape, twolayer)
         e, c, niter = davidson_fused(
@@ -287,8 +344,6 @@ def eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess):
             inverse=inverse, tol=tol, max_cycle=100, twolayer=twolayer)
         logger.debug(f"use davidson, HC hops: {niter}")
         return e, c
-    hdiag = hop_diag(ltensor, rtensor, cmo, twolayer).reshape(-1) * inverse
-    hdiag = torch.where(mask, hdiag, 1e10)
     x0 = [torch.where(mask, g, 0) for g in guesses]
     thetas, x, niter = davidson_multiroot(
         lambda rows: torch.stack([hop(r) for r in rows]), x0, hdiag, nroots,
@@ -310,7 +365,7 @@ def _eigh_arpack(mps, qn_mask, ltensor, rtensor, cmo, omega, expr, guess):
         return eigh_direct(mps, qn_mask, ltensor, rtensor, cmo, omega)
     dim = qn_mask.size
     idx_dev = torch.as_tensor(idx, device=backend.device)
-    dtype = torch.promote_types(guess.dtype, ltensor.dtype)
+    dtype = guess.dtype  # promoted with the environments' dtype
 
     def matvec(x):
         full = torch.zeros(dim, dtype=dtype, device=backend.device)
@@ -363,3 +418,119 @@ def _eigh_lobpcg(hop, mask, guesses, nroots, size):
     if nroots == 1:
         return e_vals[0], sign_fix(vecs[:, 0])
     return e_vals, sign_fix([vecs[:, i] for i in range(nroots)], nroots)
+
+
+class DmrgFCISolver:
+    """DMRG as a PySCF FCI/CASCI solver (reference ``gs.py:579-746``):
+    ``kernel`` builds ``qc_model`` from the spatial integrals and runs
+    2-site DMRG; ``make_rdm1``/``make_rdm2`` read the spin-traced reduced
+    density matrices from expectations of ladder-operator MPOs.  pyscf is
+    optional: without it ``h2`` must be the full (norb,) * 4 array."""
+
+    def __init__(self):
+        self.mps: Mps = None
+        self.nsorb: int = None
+        self.bond_dimension: int = 32
+        self.procedure = None
+        self.rdm1_mpos = []
+        self.rdm2_mpos = []
+
+    def kernel(self, h1, h2, norb, nelec, ci0=None, ecore=0, **kwargs):
+        if self.nsorb is None:
+            self.nsorb = norb * 2
+        else:
+            assert norb * 2 == self.nsorb
+
+        try:
+            import pyscf
+
+            h2 = pyscf.ao2mo.restore(1, h2, norb)
+        except ImportError:
+            h2 = np.asarray(h2)
+            assert h2.ndim == 4
+        h1, h2 = int_to_h(h1, h2)
+        basis, ham_terms = qc_model(h1, h2)
+        model = Model(basis, ham_terms)
+        mpo = Mpo(model)
+        logger.info(f"mpo_bond_dims:{mpo.bond_dims}")
+
+        if isinstance(nelec, (int, np.integer)):
+            nelec = [nelec - nelec // 2, nelec // 2]
+        m = self.bond_dimension
+        mps = Mps.random(model, nelec, m, percent=1.0)
+        if self.procedure is None:
+            mps.optimize_config.procedure = [[m, 0.4], [m, 0.2], [m, 0.1]] + [[m, 0]] * 4
+        else:
+            mps.optimize_config.procedure = self.procedure
+        mps.optimize_config.method = "2site"
+        energies, mps = optimize_mps(mps.copy(), mpo)
+        self.mps = mps
+        return min(energies) + ecore, mps
+
+    def _ladder_ops(self):
+        a_ops, a_dag_ops = generate_ladder_operator(self.nsorb)
+        return a_ops, a_dag_ops, partial(simplify_op, norbs=self.nsorb,
+                                         conserve_qn=True)
+
+    def _make_rdm1_mpos(self, model, norb):
+        assert norb == self.nsorb // 2 and not self.rdm1_mpos
+        a_ops, a_dag_ops, process = self._ladder_ops()
+        for i in range(norb):
+            for j in range(i + 1):
+                opaa = process(a_dag_ops[2 * i] * a_ops[2 * j])
+                opbb = process(a_dag_ops[2 * i + 1] * a_ops[2 * j + 1])
+                self.rdm1_mpos.append(Mpo(model, terms=[opaa, opbb]))
+
+    def make_rdm1(self, params, norb, nelec):
+        """Spin-traced 1-RDM (reference ``gs.py:638-669``)."""
+        mps = self.mps if params is None else params
+        if not self.rdm1_mpos:
+            self._make_rdm1_mpos(self.mps.model, norb)
+        expectations = deque(mps.expectations(self.rdm1_mpos))
+        rdm1 = np.zeros([norb] * 2)
+        for i in range(norb):
+            for j in range(i + 1):
+                rdm1[i, j] = rdm1[j, i] = expectations.popleft()
+        return rdm1
+
+    @staticmethod
+    def _rdm2_keys(norb):
+        """The (p, q, r, s) of each distinct 2-RDM element and the four
+        index orders it fills."""
+        seen = set()
+        for p, q, r, s in itertools.product(range(norb), repeat=4):
+            if (p, q, r, s) in seen:
+                continue
+            same = [(p, q, r, s), (s, r, q, p), (q, p, s, r), (r, s, p, q)]
+            seen.update(same)
+            yield (p, q, r, s), same
+
+    def _make_rdm2_mpos(self, model, norb):
+        assert norb == self.nsorb // 2 and not self.rdm2_mpos
+        a_ops, a_dag_ops, process = self._ladder_ops()
+        for (p, q, r, s), _ in self._rdm2_keys(norb):
+            ops = [
+                process(Op.product([a_dag_ops[2 * p + sp], a_dag_ops[2 * q + sq],
+                                    a_ops[2 * r + sq], a_ops[2 * s + sp]]))
+                for sp, sq in [(0, 0), (0, 1), (1, 0), (1, 1)]
+            ]
+            self.rdm2_mpos.append(Mpo(model, terms=ops))
+
+    def make_rdm2(self, params, norb, nelec):
+        """Spin-traced 2-RDM in PySCF notation (reference ``gs.py:692-736``)."""
+        mps = self.mps if params is None else params
+        if not self.rdm2_mpos:
+            self._make_rdm2_mpos(self.mps.model, norb)
+        expectations = deque(mps.expectations(self.rdm2_mpos))
+        rdm2 = np.zeros([norb] * 4)
+        for _, same in self._rdm2_keys(norb):
+            v = expectations.popleft()
+            for idx in same:
+                rdm2[idx] = v
+        return rdm2.transpose(0, 3, 1, 2)
+
+    def make_rdm12(self, params, norb, nelec):
+        return self.make_rdm1(params, norb, nelec), self.make_rdm2(params, norb, nelec)
+
+    def spin_square(self, params, norb, nelec):
+        raise NotImplementedError

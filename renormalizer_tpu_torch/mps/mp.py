@@ -19,14 +19,14 @@ import numpy as np
 import torch
 
 from renormalizer_tpu_torch.backend import backend, np_dtype
-from renormalizer_tpu_torch.model import Model
+from renormalizer_tpu_torch.model import HolsteinModel, Model
 from renormalizer_tpu_torch.mps import svd_qn, trunc_device
-from renormalizer_tpu_torch.mps.lib import select_basis, select_indices
+from renormalizer_tpu_torch.mps.lib import Environ, select_basis, select_indices
 from renormalizer_tpu_torch.mps.trunc_device import _double
-from renormalizer_tpu_torch.mps.svd_qn import add_outer
-from renormalizer_tpu_torch.ops.contract import chain_overlap, tensordot1
-from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
-from renormalizer_tpu_torch.utils.utils import sizeof_fmt
+from renormalizer_tpu_torch.mps.svd_qn import add_outer, get_qn_mask
+from renormalizer_tpu_torch.ops.contract import chain_overlap, hop_expr, tensordot1
+from renormalizer_tpu_torch.utils import OFS, CompressConfig, CompressCriteria
+from renormalizer_tpu_torch.utils.utils import calc_vn_entropy, sizeof_fmt
 
 logger = logging.getLogger(__name__)
 
@@ -122,6 +122,20 @@ class MatrixProduct:
         except Exception:
             logger.exception("Dump MP failed.")
 
+    @classmethod
+    def from_mp(cls, model, mplist):
+        """A chain of the given site tensors, with empty quantum numbers
+        (as ``renormalizer_tpu/mps/mp.py:154``)."""
+        mp = cls()
+        mp.model = model
+        if any(np.iscomplexobj(mt) if isinstance(mt, np.ndarray) else mt.is_complex()
+               for mt in mplist):
+            mp.dtype = backend.complex_dtype
+        for mt in mplist:
+            mp.append(mt)
+        mp.build_empty_qn()
+        return mp
+
     # --- basic properties ----------------------------------------------------
     @property
     def site_num(self):
@@ -165,6 +179,8 @@ class MatrixProduct:
     def pbond_list(self):
         return self.model.pbond_list
 
+    pbond_dims = pbond_list
+
     @property
     def bond_dims_exact(self) -> np.ndarray:
         """The largest bond dimensions an exact representation can need
@@ -207,9 +223,10 @@ class MatrixProduct:
             self.qn[idx] = self.qntot - self.qn[idx]
         self.qnidx = dstidx
 
-    def _get_big_qn(self, cidx: List[int]):
+    def _get_big_qn(self, cidx: List[int], swap=False):
         """Super-L/R-block quantum numbers around the active site(s)
-        (reference ``mp.py:308-352``)."""
+        (reference ``mp.py:308-352``); ``swap`` takes the two sites' local
+        quantum numbers in the other order (OFS)."""
         if len(cidx) == 2:
             cidx = sorted(cidx)
             assert cidx[0] + 1 == cidx[1]
@@ -218,6 +235,9 @@ class MatrixProduct:
         assert self.qnidx in cidx
 
         sigmaqn = [np.array(self._get_sigmaqn(idx)) for idx in cidx]
+        if swap:
+            assert len(sigmaqn) == 2
+            sigmaqn = sigmaqn[::-1]
         qnl = np.array(self.qn[cidx[0]])
         qnr = np.array(self.qn[cidx[-1] + 1])
         if len(cidx) == 1:
@@ -351,10 +371,10 @@ class MatrixProduct:
     def compress(self, temp_m_trunc=None, ret_s=False):
         """SVD-compress a canonicalised MP (reference ``mp.py:437-511``).
         The qn-blocked factors come from the device factorization
-        (:func:`trunc_device.compress_factors`, exact at every size, with
-        the small singular values resolved and the exact zeros completed by
-        seeded random directions); only the singular values travel to the
-        host, where the cut is chosen."""
+        (:func:`trunc_device.compress_factors`: a full SVD of each sector
+        block in double precision, as the JAX package's host ``svd_qn``);
+        only the singular values travel to the host, where the cut is
+        chosen."""
         if self.to_right:
             assert self.qnidx == 0
         else:
@@ -391,6 +411,97 @@ class MatrixProduct:
         s_array = np.array([np.pad(np.asarray(s), (0, max_len - len(s))) for s in s_list])
         return self, s_array
 
+    def variational_compress(self, mpo=None, guess=None):
+        """Variational (sweeping-fit) compression of ``mpo @ self``
+        (reference ``mp.py:514-649``): each site update applies the
+        effective operator <guess| mpo |self> to the exact two-site (or
+        one-site) tensor and truncates it into the guess; stops when two
+        sweeps at ``percent == 0`` differ by less than ``vrtol``."""
+        if mpo is None:
+            raise NotImplementedError(
+                "SVD compression is preferred for a standalone MP."
+            )
+        if guess is None:
+            compressed_mpo = mpo.copy().canonicalise().compress(
+                temp_m_trunc=self.compress_config.vguess_m[0]
+            )
+            compressed_mps = self.copy().canonicalise().compress(
+                temp_m_trunc=self.compress_config.vguess_m[1]
+            )
+            guess = compressed_mpo.apply(compressed_mps)
+        mps = guess
+        mps.ensure_left_canonical()
+        logger.info(f"initial guess bond dims: {mps.bond_dims}")
+        procedure = mps.compress_config.vprocedure
+        method = mps.compress_config.vmethod
+
+        environ = Environ(self, mpo, "L", mps_conj=mps.conj())
+        mps_old = None
+        for isweep, (compress_config, percent) in enumerate(procedure):
+            logger.debug(f"isweep: {isweep}, bond dims: {mps.bond_dims}")
+            if isinstance(compress_config, CompressConfig):
+                mps.compress_config = compress_config
+            elif isinstance(compress_config, int):
+                mps.compress_config = CompressConfig(
+                    CompressCriteria.fixed, max_bonddim=compress_config
+                )
+            else:
+                raise AssertionError
+
+            for imps in mps.iter_idx_list(full=True):
+                if method == "2site" and (
+                    (mps.to_right and imps == mps.site_num - 1)
+                    or ((not mps.to_right) and imps == 0)
+                ):
+                    break
+                if mps.to_right:
+                    lmethod, rmethod = "System", "Enviro"
+                else:
+                    lmethod, rmethod = "Enviro", "System"
+                if method == "1site":
+                    lidx, cidx, ridx = imps - 1, [imps], imps + 1
+                elif mps.to_right:
+                    lidx, cidx, ridx = imps - 1, [imps, imps + 1], imps + 2
+                else:
+                    lidx, cidx, ridx = imps - 2, [imps - 1, imps], imps + 1
+
+                mps_conj = mps.conj()
+                ltensor = environ.GetLR("L", lidx, self, mpo, method=lmethod,
+                                        mps_conj=mps_conj)
+                rtensor = environ.GetLR("R", ridx, self, mpo, method=rmethod,
+                                        mps_conj=mps_conj)
+
+                qnbigl, qnbigr, qnmat = mps._get_big_qn(cidx)
+                qn_mask = get_qn_mask(qnmat, mps.qntot)
+                cmo = [mpo[i] for i in cidx]
+                if method == "1site":
+                    cms = self[cidx[0]]
+                else:
+                    cms = tensordot1(self[cidx[0]], self[cidx[1]])
+                cout = hop_expr(ltensor, rtensor, cmo, cms.shape)(cms)
+                cout = torch.where(backend.tensor(qn_mask), cout, 0)
+                mps._update_mps(cout, cidx, qnbigl, qnbigr, percent)
+                if mps.compress_config.ofs is not None:
+                    raise NotImplementedError(
+                        "OFS for variational compress not implemented"
+                    )
+            mps._switch_direction()
+
+            if isweep > 0 and percent == 0 and mps_old is not None:
+                error = mps.distance(mps_old) / np.sqrt(abs(mps.dot(mps.conj()).real))
+                logger.info(f"Variational compress relative error: {error}")
+                if error < mps.compress_config.vrtol:
+                    logger.info("Variational compress is converged!")
+                    break
+            mps_old = mps.copy()
+        else:
+            logger.warning(
+                "Variational compress is not converged! Please increase the procedure!"
+            )
+        mps.canonicalise()
+        logger.info(f"{mps}")
+        return mps
+
     # --- truncation ----------------------------------------------------------
     def _update_mps(self, cstruct, cidx, qnbigl, qnbigr, percent=0):
         """Truncate the active-site coefficient on the device and write the
@@ -405,6 +516,9 @@ class MatrixProduct:
         if isinstance(cstruct, list):
             return self._update_mps_averaged(cstruct, cidx, qnbigl, qnbigr,
                                              system, percent)
+        if self.compress_config.ofs is not None:
+            cstruct, qnbigl, qnbigr = self._ofs_select(cstruct, cidx, qnbigl,
+                                                       qnbigr, system)
         ms, msdim, msqn, compms = self._update_mps_device(
             cstruct, cidx, qnbigl, qnbigr, system, percent)
         self._write_back(cidx, ms, msqn, compms)
@@ -519,6 +633,67 @@ class MatrixProduct:
         if rotated is not None:
             averaged.extend(merge(c) for c in rotated)
 
+    def _ofs_select(self, cstruct, cidx, qnbigl, qnbigr, system):
+        """On-the-fly swapping (reference ``mp.py:696-757``): compare the
+        two-site coefficient in the current and in the swapped order of the
+        two DoFs by entanglement entropy and/or discarded weight; on a swap
+        the model's basis order changes.  Returns the coefficient and the
+        super-block quantum numbers of the order kept.
+
+        Both orders' singular values come from the factorization of
+        ``compress`` (:func:`trunc_device.compress_factors`, a full SVD per
+        sector block on the device); the JAX package takes them from the
+        host ``svd_qn``.  The kept order is then truncated as any update."""
+        if isinstance(self.model, HolsteinModel):
+            raise NotImplementedError("Can't perform OFS on Holstein model")
+
+        def sigma(c, ql, qr):
+            return trunc_device.compress_factors(c, ql, qr, self.qntot, system,
+                                                 resolve=True)[1]
+
+        qnbigl2, qnbigr2, _ = self._get_big_qn(cidx, swap=True)
+        c = backend.tensor(cstruct)
+        if c.ndim == 4:
+            cstruct2 = c.permute(0, 2, 1, 3)
+        else:
+            assert c.ndim == 6
+            cstruct2 = c.permute(0, 3, 4, 1, 2, 5)
+        cstruct2 = cstruct2.contiguous()
+        if self.compress_config.ofs_swap_jw:
+            assert cstruct2.ndim == 4
+            cstruct2[:, 1, 1, :] *= -1
+        s1 = np.clip(sigma(c, qnbigl, qnbigr), 0, None)
+        s2 = np.clip(sigma(cstruct2, qnbigl2, qnbigr2), 0, None)
+        entropy1 = calc_vn_entropy(s1 ** 2)
+        entropy2 = calc_vn_entropy(s2 ** 2)
+        assert self.compress_config.criteria == CompressCriteria.fixed
+        m_max = self.compress_config.bond_dim_max_value
+        loss1 = float((np.sort(s1)[::-1][m_max:] ** 2).sum())
+        loss2 = float((np.sort(s2)[::-1][m_max:] ** 2).sum())
+        ofs = self.compress_config.ofs
+        if ofs is OFS.ofs_d:
+            retain = loss1 <= loss2
+        elif ofs is OFS.ofs_ds:
+            retain = (entropy1 <= entropy2 if (loss1 < 1e-10 and loss2 < 1e-10)
+                      else loss1 <= loss2)
+        elif ofs is OFS.ofs_s:
+            retain = entropy1 <= entropy2
+        else:
+            assert ofs is OFS.ofs_debug
+            retain = True
+        logger.debug(
+            f"OFS: site index {cidx}, should swap: {not retain}, "
+            f"S: {entropy1}, {entropy2}, loss: {loss1}, {loss2}"
+        )
+        if retain:
+            return c, qnbigl, qnbigr
+        new_basis = self.model.basis.copy()
+        new_basis[cidx[0]:cidx[1] + 1] = reversed(self.model.basis[cidx[0]:cidx[1] + 1])
+        self.model = Model(new_basis, self.model.ham_terms, self.model.dipole,
+                           self.model.output_ordering)
+        logger.debug(f"DOF ordering: {[b.dof for b in self.model.basis]}")
+        return cstruct2, qnbigl2, qnbigr2
+
     # --- algebra -----------------------------------------------------------------
     @property
     def mp_norm(self) -> float:
@@ -572,6 +747,26 @@ class MatrixProduct:
         (reference ``mp.py:933-956``)."""
         assert len(self) == len(other)
         return chain_overlap(list(self), list(other))
+
+    def dot_ob(self, other: "MatrixProduct") -> torch.Tensor:
+        """Open-boundary overlap of chains whose edge bonds may exceed 1
+        (reference ``mp.py:958-979``): a (l_self, l_other, r_self, r_other)
+        tensor."""
+        assert len(self) == len(other)
+        dtype = torch.promote_types(self[0].dtype, other[0].dtype)
+        eye = lambda n: torch.eye(n, dtype=dtype, device=self[0].device)
+        e0 = torch.tensordot(eye(self[0].shape[0]), eye(other[0].shape[0]),
+                             dims=0).permute(0, 2, 1, 3)
+        for mt1, mt2 in zip(self, other):
+            e0 = torch.tensordot(e0, mt2.to(dtype), dims=1)
+            if mt1.ndim == 3:
+                e0 = torch.tensordot(e0, mt1.to(dtype), dims=([2, 3], [0, 1]))
+            elif mt1.ndim == 4:
+                e0 = torch.tensordot(e0, mt1.to(dtype), dims=([2, 3, 4], [0, 1, 2]))
+            else:
+                raise AssertionError
+            e0 = e0.permute(0, 1, 3, 2)
+        return e0
 
     def angle(self, other):
         return abs(self.conj().dot(other))

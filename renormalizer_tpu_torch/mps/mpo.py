@@ -2,8 +2,10 @@ r"""Matrix product operators.
 
 Port of ``renormalizer_tpu/mps/mpo.py`` (reference
 ``renormalizer/mps/mpo.py:28-494``): the constructor, ``exact_propagator``,
-``onsite``, ``ph_onsite``, ``intersite``, ``identity``, ``apply``/``contract``
-and ``todense``.  The symbolic compilation
+``onsite``, ``ph_onsite``, ``intersite``, ``identity``, ``finiteT_cv``,
+``apply``/``contract`` (SVD or variational), the OFS site swap
+``try_swap_site``, ``digest``, ``todense`` and :class:`StackedMpo`.  The
+symbolic compilation
 runs on the host (``symbolic_mpo.py``); the numeric site tensors live on the
 backend device.
 """
@@ -24,6 +26,7 @@ from renormalizer_tpu_torch.mps.svd_qn import add_outer
 from renormalizer_tpu_torch.mps.symbolic_mpo import (
     _terms_to_table,
     construct_symbolic_mpo,
+    swap_site,
     symbolic_mo_to_numeric_mo,
 )
 from renormalizer_tpu_torch.utils import Quantity
@@ -285,13 +288,46 @@ class Mpo(MatrixProduct):
         return new_mps
 
     def contract(self, mps, algo="svd"):
-        """Compressed ``mpo @ mps`` (reference ``mpo.py:391-425``)."""
-        if algo != "svd":
-            raise NotImplementedError(f"contract algo={algo!r}")
-        new_mps = self.apply(mps)
-        new_mps.canonicalise()
-        new_mps.compress()
+        """Compressed ``mpo @ mps`` (reference ``mpo.py:391-425``): the
+        exact product compressed by SVD, or fitted by
+        :meth:`MatrixProduct.variational_compress`."""
+        if algo == "svd":
+            new_mps = self.apply(mps)
+            new_mps.canonicalise()
+            new_mps.compress()
+        elif algo == "variational":
+            new_mps = mps.variational_compress(self)
+        else:
+            raise AssertionError
         return new_mps
+
+    def try_swap_site(self, new_model: Model, swap_jw: bool, algo="Hopcroft-Karp"):
+        """In-place symbolic swap of the two adjacent sites whose DoFs
+        ``new_model`` holds in the other order (OFS; reference
+        ``mpo.py:427-454``): the three bonds around them are recompiled on
+        the host and the two site tensors rebuilt."""
+        diffs = [
+            i for i, (b1, b2) in enumerate(zip(self.model.basis, new_model.basis))
+            if b1.dofs != b2.dofs
+        ]
+        if not diffs:
+            logger.debug("MPO: No need to swap")
+            return
+        assert len(diffs) == 2
+        i, j = min(diffs), max(diffs)
+        assert j - i == 1
+        logger.debug(f"MPO: swapping {i} and {j}")
+        new_model.mpos.clear()
+        out_ops2, out_ops3, mo1, mo2, qn = swap_site(
+            self.symbolic_out_ops_list[i:i + 3], self.primary_ops, swap_jw, algo=algo
+        )
+        self.symbolic_out_ops_list[i + 1] = out_ops2
+        self.symbolic_out_ops_list[i + 2] = out_ops3
+        self.model = new_model
+        self.qn[i + 1] = np.array(qn)
+        for impo, mo in zip([i, j], [mo1, mo2]):
+            self[impo] = symbolic_mo_to_numeric_mo(new_model.basis[impo], mo,
+                                                   np_dtype(self.dtype))
 
     def conj_trans(self):
         new_mpo = self.metacopy()
@@ -303,6 +339,12 @@ class Mpo(MatrixProduct):
     def is_hermitian(self):
         full = self.todense()
         return np.allclose(full.conj().T, full, atol=1e-7)
+
+    @property
+    def digest(self):
+        """A scalar fingerprint of the site tensors: the variance of their
+        variances (as ``renormalizer_tpu/mps/mpo.py:364``)."""
+        return np.array([to_numpy(mt).var() for mt in self]).var()
 
     def __matmul__(self, other):
         return self.apply(other)
@@ -323,3 +365,11 @@ class Mpo(MatrixProduct):
                 .reshape(1, d1, d2, mt.shape[-1])
             )
         return res[0, :, :, 0]
+
+
+class StackedMpo:
+    """A sum of MPOs kept apart: each term has its own environments and the
+    eigensolver sums their hops (reference ``mpo.py:483-494``)."""
+
+    def __init__(self, mpos: List[Mpo]):
+        self.mpos = mpos

@@ -231,9 +231,12 @@ class Mps(MatrixProduct):
         return mps
 
     @classmethod
-    def ground_state(cls, model: Model, max_entangled: bool, normalize: bool = True):
+    def ground_state(cls, model: Model, max_entangled: bool, normalize: bool = True,
+                     condition: Dict = None):
         r"""T=0 or T=inf (max-entangled) product state
-        (reference ``mps.py:258-350``) for the bases the port carries."""
+        (reference ``mps.py:258-350``).  A ``BasisMultiElectron`` site takes
+        its local state from ``condition`` (DoF -> state index or
+        amplitudes), which must carry quantum number 0."""
         mps = cls()
         mps.model = model
         mps.qn = [np.zeros((1, model.qn_size), dtype=int)] * (model.nsite + 1)
@@ -241,6 +244,13 @@ class Mps(MatrixProduct):
         mps.to_right = False
         mps.qntot = np.zeros(model.qn_size, dtype=int)
         mps.build_empty_mp(model.nsite)
+
+        site_condition = {}
+        if condition is not None:
+            for key, value in condition.items():
+                idx = model.dof_to_siteidx[key]
+                assert idx not in site_condition
+                site_condition[idx] = value
 
         for isite, local_basis in enumerate(model.basis):
             pdim = local_basis.nbas
@@ -253,6 +263,18 @@ class Mps(MatrixProduct):
             elif isinstance(local_basis, (ba.BasisSimpleElectron,
                                           ba.BasisMultiElectronVac)):
                 ms[0, 0, 0] = 1.0
+            elif isinstance(local_basis, ba.BasisMultiElectron):
+                assert condition is not None
+                local_state = site_condition.pop(isite)
+                if isinstance(local_state, int):
+                    ms[0, local_state, 0] = 1.0
+                    qn = local_basis.sigmaqn[local_state]
+                else:
+                    ms[0, :, 0] = local_state
+                    qn = local_basis.sigmaqn[np.nonzero(local_state)]
+                assert np.allclose(qn, 0)
+                if max_entangled and normalize:
+                    ms /= np.linalg.norm(ms)
             else:
                 raise NotImplementedError
             mps[isite] = ms
@@ -316,6 +338,10 @@ class Mps(MatrixProduct):
         return False
 
     @property
+    def nexciton(self):
+        return self.qntot
+
+    @property
     def norm(self):
         """Norm of the total wavefunction including ``coeff``."""
         return np.linalg.norm(self.coeff) * self.mp_norm
@@ -361,6 +387,9 @@ class Mps(MatrixProduct):
         # (l, ket_site, mpo_site, bra_site, r)
         return "abc,cfh,bdfg,ade,egh->"
 
+    def _expectation_conj(self):
+        return self.conj()
+
     def expectation(self, mpo, self_conj: "Mps" = None) -> Union[float, complex]:
         r"""<self_conj| mpo |self> (reference ``mps.py:471-525``)."""
         if isinstance(mpo, (Op, OpSum)):
@@ -368,7 +397,7 @@ class Mps(MatrixProduct):
         if self.is_complex:
             mpo = _complex_mpo_twin(mpo)
         if self_conj is None:
-            self_conj = self.conj()
+            self_conj = self._expectation_conj()
         environ = Environ(self, mpo, "R", mps_conj=self_conj)
         r = environ.read("R", 1)
         val = complex(einsum(self._expectation_path(), environ.sentinel, self[0],
@@ -388,7 +417,7 @@ class Mps(MatrixProduct):
         mpos = [Mpo(self.model, mpo) if isinstance(mpo, (Op, OpSum)) else mpo
                 for mpo in mpos]
         if self_conj is None:
-            self_conj = self.conj()
+            self_conj = self._expectation_conj()
         if not opt:
             results = np.array([complex(self.expectation(mpo, self_conj))
                                 for mpo in mpos])
@@ -855,11 +884,8 @@ class Mps(MatrixProduct):
         compress config (``_update_mps``: a real Gram goes to the Jacobi
         kernel, a complex one to ``torch.linalg.eigh``, counted in
         ``trunc_device.LINALG_EIGH_GRAMS``) and evolves the kept site
-        backward.  The OFS site swap is not ported (``compress_config.ofs``
-        raises)."""
-        if self.compress_config.ofs is not None:
-            raise NotImplementedError(
-                "TDVP-PS2 with OFS (optimal fermion/site ordering) is not ported")
+        backward.  With ``compress_config.ofs`` the update may swap the two
+        DoFs (``_ofs_select``), and the MPO follows (``try_swap_site``)."""
         if np.iscomplex(evolve_dt):
             mps = self.copy()
         else:
@@ -886,6 +912,8 @@ class Mps(MatrixProduct):
                                                   -1j * evolve_dt / 2, ms2)
                 qnbigl, qnbigr, _ = mps._get_big_qn([cidx0, cidx1])
                 mps._update_mps(mps_t, [cidx0, cidx1], qnbigl, qnbigr)
+                if mps.compress_config.ofs is not None:
+                    mpo.try_swap_site(mps.model, mps.compress_config.ofs_swap_jw)
                 if imps == last_idx:
                     continue
                 if mps.to_right:

@@ -21,8 +21,11 @@ emits are moved to the backend's device by :class:`Mpo`.  Algorithm follows the 
    operator sums; ``symbolic_mo_to_numeric_mo`` evaluates it with
    ``basis.op_mat``.
 
-Numpy copy of ``renormalizer_tpu/mps/symbolic_mpo.py`` without the OFS site
-swap, which the port does not carry yet.
+Also contains the symbolic two-site swap used by on-the-fly DoF reordering
+(OFS), including the Jordan-Wigner-aware variant
+(reference ``symbolic_mpo.py:516-726``).
+
+Numpy copy of ``renormalizer_tpu/mps/symbolic_mpo.py``.
 """
 
 import logging
@@ -330,3 +333,159 @@ def symbolic_mo_to_numeric_mo(basis: BasisSet, mo, dtype):
     axes = list(range(mo.ndim + 2))
     axes = axes[:-3] + axes[-2:] + [axes[-3]]
     return mat.transpose(axes)
+
+
+def _format_symbolic_mpo(symbolic_mpo):
+    """Pretty-print a symbolic MPO for debugging
+    (reference ``symbolic_mpo.py:471-509``)."""
+
+    def fmt(op: Op):
+        s = op.symbol.replace(r"^\dagger", "†")
+        if op.factor != 1:
+            s = f"{op.factor:.1e} * " + s
+        return s
+
+    out_lines = []
+    for mo in symbolic_mpo:
+        strings = np.empty((len(mo), len(mo[0])), dtype=object)
+        for i, row in enumerate(mo):
+            for j, terms in enumerate(row):
+                strings[i][j] = " + ".join(fmt(op) for op in terms) if terms else "0"
+        widths = np.vectorize(len)(strings).max(axis=0)
+        lines = []
+        for row in strings:
+            padded = [t + " " * (widths[j] - len(t)) for j, t in enumerate(row)]
+            lines.append("│ " + "   ".join(padded) + " │")
+        if len(lines) != 1:
+            lines[0] = "┏" + lines[0][1:-1] + "┓"
+            lines[-1] = "┗" + lines[-1][1:-1] + "┛"
+        out_lines.append("\n".join(lines))
+    return "\n".join(out_lines)
+
+
+# ---------------------------------------------------------------------------
+# symbolic two-site swap for on-the-fly DoF ordering (OFS)
+# reference ``symbolic_mpo.py:516-726``
+# ---------------------------------------------------------------------------
+
+ExpandedOp = namedtuple("ExpandedOp", ["factor", "out_ops1_idx", "site1_op_idx", "site2_op_idx"])
+_DummyOp = namedtuple("DummyOp", ["qn"])
+
+
+def _expand_bond3(out_ops2, out_ops3_sum):
+    """Expand a bond-3 operator into explicit (bond1, site1, site2) terms."""
+    res = []
+    for out_op in out_ops3_sum:
+        for inner in out_ops2[out_op.symbol[0]]:
+            res.append(
+                ExpandedOp(
+                    inner.factor * out_op.factor,
+                    inner.symbol[0], inner.symbol[1], out_op.symbol[1],
+                )
+            )
+    return res
+
+
+def _swapped_row_jw(row, primary_ops: List, op2idx: Dict):
+    """Jordan-Wigner-aware swap of one table row (reference
+    ``symbolic_mpo.py:582-635``).  The swap rule for JW strings:
+    a1 -> a1 z2, a2 -> z1 a2 etc., with sign from anticommutation."""
+    assert len(row) == 5 and row[-1] == 0
+    op1: Op = primary_ops[row[1]]
+    op2: Op = primary_ops[row[2]]
+
+    def parity(op):
+        return (op.split_symbol.count("sigma_+") + op.split_symbol.count("sigma_-")) % 2
+
+    op1_odd, op2_odd = parity(op1), parity(op2)
+    coeff = (-1) ** (op2_odd * (op1.split_symbol.count("sigma_+") + op1.split_symbol.count("sigma_-")))
+
+    def prepend_z(op: Op):
+        syms = op.split_symbol
+        if syms[0] == "I":
+            assert len(syms) == 1
+            return Op("sigma_z", op.dofs[0], qn=0)
+        if syms[0] == "sigma_z":
+            if len(syms) == 1:
+                return Op.identity(op.dofs[0])
+            return Op(" ".join(syms[1:]), op.dofs[1:], qn=op.qn_list[1:])
+        if syms[0] in ("sigma_+", "sigma_-"):
+            return Op("sigma_z " + op.symbol, [op.dofs[0]] + op.dofs, qn=[0] + op.qn_list)
+        raise AssertionError(f"unexpected JW symbol {syms[0]}")
+
+    new_op1 = prepend_z(op1) if op2_odd else op1
+    new_op2 = prepend_z(op2) if op1_odd else op2
+    for op in (new_op1, new_op2):
+        if op not in op2idx:
+            op2idx[op] = len(primary_ops)
+            primary_ops.append(op)
+    return [row[0], op2idx[new_op1], op2idx[new_op2], row[3], row[4]], coeff
+
+
+def swap_site(out_ops_list, primary_ops: List, swap_jw: bool, algo="Hopcroft-Karp"):
+    """Swap two adjacent MPO sites symbolically.
+
+    ``out_ops_list`` holds the operator bases at the three bonds around the
+    two sites.  Returns the new bond-2/bond-3 bases, the two new symbolic
+    site matrices and the new bond-2 quantum numbers.
+    Reference ``symbolic_mpo.py:650-726``.
+    """
+    out_ops1, out_ops2, out_ops3 = out_ops_list
+
+    out_ops3_expanded = [_expand_bond3(out_ops2, s) for s in out_ops3]
+
+    table, factor = [], []
+    # auxiliary dummy primary ops label the bond-3 channels so the recompiled
+    # MPO can be matched back channel by channel
+    aux_ops = [_DummyOp(-s[0].qn) for s in out_ops3]
+    n_primary = len(primary_ops)
+
+    if not swap_jw:
+        primary_ops = primary_ops.copy()
+        primary_ops.extend(aux_ops)
+
+    for i, expanded in enumerate(out_ops3_expanded):
+        for op in expanded:
+            # swap the two site columns and append the channel label
+            table.append([op.out_ops1_idx, op.site2_op_idx, op.site1_op_idx, n_primary + i, 0])
+            factor.append(op.factor)
+    table, factor = _dedup_table(np.array(table), np.array(factor))
+
+    if swap_jw:
+        # swapping fermionic strings rewrites the operators in place
+        op2idx = {op: i for i, op in enumerate(primary_ops)}
+        new_table, new_factor = [], []
+        for row, f in zip(table, factor):
+            new_row, coeff = _swapped_row_jw(row, primary_ops, op2idx)
+            new_table.append(new_row)
+            new_factor.append(coeff * f)
+        table, factor = np.array(new_table), np.array(new_factor)
+        table[:, 3] = table[:, 3] + (len(primary_ops) - n_primary)
+        n_primary = len(primary_ops)
+        primary_ops = primary_ops.copy()
+        primary_ops.extend(aux_ops)
+
+    new_out_ops = _sweep_symbolic_mpo(table, out_ops1, factor, primary_ops, algo=algo)
+    assert len(new_out_ops) == 4
+    new_out_ops1, new_out_ops2, unsorted3 = new_out_ops[:3]
+
+    # reorder bond-3 operators back into the original channel order using the
+    # dummy labels
+    new_out_ops3 = [None] * len(unsorted3)
+    assert len(new_out_ops3) == len(aux_ops)
+    assert len(new_out_ops[-1]) == 1
+    for dummy in new_out_ops[-1][0]:
+        idx1, idx2 = dummy.symbol
+        idx2 -= n_primary
+        channel = unsorted3[idx1]
+        if dummy.factor != 1:
+            channel = [
+                OpTuple(op.symbol, op.qn, op.factor * dummy.factor) for op in channel
+            ]
+        new_out_ops3[idx2] = channel
+    assert None not in new_out_ops3
+
+    mo1 = compose_symbolic_mo(out_ops1, new_out_ops2, primary_ops)
+    mo2 = compose_symbolic_mo(new_out_ops2, new_out_ops3, primary_ops)
+    qn = [opsum[0].qn for opsum in new_out_ops2]
+    return new_out_ops2, new_out_ops3, mo1, mo2, qn

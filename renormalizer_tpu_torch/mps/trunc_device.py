@@ -20,8 +20,11 @@ truncation to ``cap`` states can keep.
 Every real Gram eigh goes through :func:`ops.jacobi.jacobi_eigh` (the CUDA
 kernel on the card, its plain twin on the CPU); a complex Gram goes to
 ``torch.linalg.eigh`` and is counted in :data:`LINALG_EIGH_GRAMS`.  The
-only device-to-host traffic per site update is the candidate spectrum (a
-few KB) that the host-side selection reads.
+factorization of ``compress`` (``compress_factors`` with ``resolve``) is
+not randomized: a full SVD of each sector block (``_resolved_range``,
+counted in :data:`SVD_BLOCKS`).  The only device-to-host traffic per site
+update is the candidate spectrum (a few KB) that the host-side selection
+reads.
 
 Differences from the JAX package: the TPU-only 128-lane policies
 (``align_l1p``/``pick_eigh``) are gone, so l1p = min(rank, cap + OVERSAMPLE);
@@ -44,6 +47,9 @@ OVERSAMPLE = 32
 # Gram matrices sent to torch.linalg.eigh instead of the Jacobi kernel
 # (complex only); ``chip_smoke.py`` reads it with ``jacobi_eigh.launches``.
 LINALG_EIGH_GRAMS = 0
+# Sector blocks factored by ``torch.linalg.svd`` (``_resolved_range``:
+# ``compress`` and OFS); ``chip_smoke.py`` reads it beside the launches.
+SVD_BLOCKS = 0
 
 
 # Byte budget for the one-launch masked sector batch's (nsec, m, n) blocks;
@@ -221,10 +227,9 @@ def _seeded_completion(done: torch.Tensor, need: int, gen) -> torch.Tensor:
     """``need`` orthonormal columns orthogonal to the orthonormal ``done``
     (rows x p): Gaussian columns from the port's seeded generator, with
     ``done`` projected out twice and a QR whose R diagonal is made positive.
-    The directions come from the seed, not from a factorization's
-    rounding; random ones, because imaginary-time evolution can only grow
-    along padding that overlaps the states it needs (unit vectors of the
-    first rows ended 1.8e-4 off on the J = 0.2 chain below)."""
+    No path of the package calls it since :func:`_resolved_range` became a
+    full SVD; ``padding_seed_probe.py --factor svd-floor`` completes below a
+    floor with it, to show how such padding moves with the seed."""
     z = _randn(gen, (done.shape[0], need), done.dtype)
     for _ in range(2):
         z = z - done @ (done.mH @ z)
@@ -234,54 +239,26 @@ def _seeded_completion(done: torch.Tensor, need: int, gen) -> torch.Tensor:
 
 def _resolved_range(a: torch.Tensor, gen):
     """All ``min(rows, cols)`` left singular vectors of the block ``a`` and
-    lam descending, with every singular value above the rounding of ``a``
-    resolved and the exact zeros completed by :func:`_seeded_completion`.
+    lam (the squared singular values) descending, from one SVD of the
+    block in double precision on its own device (``torch.linalg.svd``:
+    LAPACK on the CPU, cuSOLVER's ``gesvd`` on the card; why that driver is
+    in :func:`compress_factors`).
 
-    One Gram pass resolves a singular value only down to ~sqrt(eps) of the
-    largest: the Gram squares it under its own rounding (eps |a|^2), so the
-    1e-10-weight directions that ``expand_bond_dimension`` adds come out as
-    rounding noise, as do the completions of the exact zeros.  Imaginary-time
-    TDVP-PS grows along whatever directions the padding holds (exp(tau |H|)),
-    and from noise it ended 8.1e-4 off the dense ensemble where a full SVD's
-    padding ends 4.8e-6 off.  So the block is deflated by the resolved
-    directions and factorized again until what is left is rounding.
-
-    The result still depends on the seed (ROADMAP queue 3;
-    ``padding_seed_probe.py``): on that chain seeds 0, 1 and 2 end 5.4e-6,
-    1.5e-3 and 9.8e-6 off (2019, the default: 4.4e-6), while LAPACK's SVD
-    ends 5.4e-6 off for each; LAPACK also resolves the singular values
-    below eps |a| (1e-17 to 1e-27 here), and the cut orders the padding by
-    them."""
-    k = min(a.shape)
-    finfo = torch.finfo(a.real.dtype)
-    resolve = 16 * finfo.eps ** 0.5
-    floor = 64 * finfo.eps * float(torch.linalg.matrix_norm(a))
-    us, lams = [], []
-    rest = a
-    # a block of zeros, or a remainder at the rounding of ``a``, has nothing
-    # left to resolve: one host read instead of a Gram
-    while k > 0 and float(torch.linalg.matrix_norm(rest)) > floor:
-        u, lam = _gram_pass(rest, k, 0, gen)
-        if us:
-            # rest lies in the complement up to the rounding of ``a``
-            done = torch.cat(us, dim=1)
-            u = u - done @ (done.mH @ u)
-            q, r = _qr(u)
-            u = q * torch.sgn(torch.diagonal(r))[None, :]
-        sigma = np.sqrt(lam.cpu().numpy())
-        if sigma[0] <= floor:
-            break
-        n_ok = max(1, int((sigma > resolve * sigma[0]).sum()))
-        u = u[:, :n_ok]
-        us.append(u)
-        lams.append(lam[:n_ok])
-        rest = rest - u @ (u.mH @ rest)
-        k -= n_ok
-    if k > 0:
-        done = torch.cat(us, dim=1) if us else a[:, :0]
-        us.append(_seeded_completion(done, k, gen))
-        lams.append(torch.zeros(k, dtype=a.real.dtype, device=a.device))
-    return torch.cat(us, dim=1), torch.cat(lams)
+    This is what the JAX package's ``svd_qn.svd_qn`` does on the host: a
+    full SVD resolves the graded tail of a sector block far below eps |a|
+    (1e-17 to 1e-27 of its norm on the expansion's padding), so the cut
+    orders the padding across sectors by the data.  One Gram pass resolves
+    a singular value only down to ~sqrt(eps) of the largest, and deflating
+    by Gram passes down to 64 eps |a| with seeded completions below it made
+    imaginary-time TDVP-PS from an expanded start end 4.4e-6 to 1.5e-3 off
+    the dense ensemble depending on the seed (ROADMAP queue 3).  The SVD
+    returns all ``min(rows, cols)`` columns, the exact zeros' included, so
+    nothing is completed and ``gen`` is not drawn from."""
+    global SVD_BLOCKS
+    SVD_BLOCKS += 1
+    u, s, _ = torch.linalg.svd(_double(a), full_matrices=False,
+                               driver="gesvd" if a.is_cuda else None)
+    return u.to(a.dtype), (s * s).to(a.real.dtype)
 
 
 def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen,
@@ -464,15 +441,22 @@ def compress_factors(coef_array, qnbigl, qnbigr, qntot, system: str,
     ``svd_qn(..., full_matrices=False)``: ``(u, sigma, qnl_list, v, sigma,
     qnr_list)`` sorted by descending singular value, with device ``u``/``v``
     and ``C = u diag(sigma) v^T``.  With ``resolve`` every sector's kept
-    side comes from :func:`_resolved_range` (``compress``: the padding of
-    ``expand_bond_dimension``); without it one Gram pass (the MU-VMF/CMF
-    gauge factorizations, inside every right-hand side).  The gauge
-    factorizations keep the one pass because through
-    :func:`_resolved_range` MU-VMF stalled: one step of 1 a.u. of
-    ``ChargeDiffusionDynamics`` on the 6-molecule bench chain at M=64 ran
-    over 8 minutes on an H100 where one pass takes 6.5-7.9 s, and on a
-    3-molecule chain at M=16 over 300 s on the CPU where one pass takes
-    7.3 s (92 right-hand sides)."""
+    side comes from :func:`_resolved_range`, a full SVD per sector block
+    (``compress``: the padding of ``expand_bond_dimension``); without it
+    one Gram pass (the MU-VMF/CMF gauge factorizations, inside every
+    right-hand side).  The gauge factorizations keep the one pass, which
+    keeps them on the Jacobi kernel: through the SVD one MU-VMF ThermalProp
+    step of ``chip_smoke.py`` phase 10(d) took the same 122 right-hand sides
+    to the same energy, in 34.10 and 32.95 s against the pass's 35.25 and
+    25.22 s (``vmf_rhs_probe.py --gauge svd``, one call on an NVIDIA H100
+    80GB HBM3 at 700 W).
+
+    The SVD's driver on the card is cuSOLVER's ``gesvd``, which iterates to
+    convergence (``gesvdj`` stops at a tolerance, ``gesvda`` is
+    approximate).  With it, 10 imaginary-time TDVP-PS steps from the
+    expanded 3-molecule, 3-level, J = 0.2 chain (``chip_smoke.py`` phase
+    13(d)) end 6.700e-6 off the dense electron RDM at seeds 2019, 0, 1 and
+    2 alike on an NVIDIA H100 80GB HBM3 at 700 W."""
     qntot = np.atleast_1d(np.asarray(qntot))
     qn_size = len(qntot)
     m = int(np.asarray(qnbigl).reshape(-1, qn_size).shape[0])

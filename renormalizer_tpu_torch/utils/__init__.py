@@ -17,3 +17,6 @@ from renormalizer_tpu_torch.utils.utils import (
 )
 from renormalizer_tpu_torch.utils import log
 from renormalizer_tpu_torch.utils.tdmps import TdMpsJob
+from renormalizer_tpu_torch.utils.configs import parse_memory_limit
+from renormalizer_tpu_torch.utils import elementop
+from renormalizer_tpu_torch.utils import oracle

@@ -3,7 +3,7 @@ time evolution.
 
 Numpy copy of ``renormalizer_tpu/utils/configs.py``: ``CompressCriteria``,
 ``OFS``, ``CompressConfig``, ``OptimizeConfig``, ``EvolveMethod``,
-``EvolveConfig``.
+``EvolveConfig`` and ``parse_memory_limit``.
 """
 
 import logging
@@ -273,3 +273,19 @@ class EvolveConfig:
 
     def __str__(self):
         return "".join(f"\n{k}: {v}" for k, v in self.__dict__.items())
+
+
+def parse_memory_limit(x) -> float:
+    """Parse a memory limit given as a number of bytes or a string like
+    '1 GB' (reference ``configs.py:324-339``)."""
+    if x is None:
+        return float("inf")
+    try:
+        return float(x)
+    except (TypeError, ValueError):
+        pass
+    try:
+        num, unit = str(x).split()
+        return float(num) * {"kb": 2 ** 10, "mb": 2 ** 20, "gb": 2 ** 30}[unit.lower()]
+    except Exception:
+        raise ValueError(f"invalid input for memory: {x}")

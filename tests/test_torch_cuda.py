@@ -59,13 +59,16 @@ def test_jacobi_kernel_matches_plain(cuda, batch, n, dtype, eig, orth):
 def test_thermal_prop_reaches_the_kernel(cuda, monkeypatch):
     """ThermalProp of chip_smoke.py's phase 8(a) (3 molecules, one 3-level
     phonon each, 1500 K, beta/2 in 20 TDVP-PS steps) on the card and on the
-    CPU, both in fp32: the same occupations, and the card's run launched the
-    Jacobi kernel (the bond-entropy compress of every step solves real
-    Grams)."""
+    CPU, both in fp32: the same occupations.  The compresses of the
+    expansion and of every step's bond entropies factor their real sector
+    blocks by cuSOLVER's SVD on the card (counted in
+    ``trunc_device.SVD_BLOCKS``), no longer by Gram matrices through the
+    Jacobi kernel, which this path therefore does not launch."""
     from renormalizer_tpu_torch import (
         EvolveConfig, EvolveMethod, HolsteinModel, MpDm, Mol, Phonon, Quantity,
         ThermalProp)
     from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.mps import trunc_device
 
     def occupations():
         ph = Phonon.simple_phonon(Quantity(1.0), Quantity(0.6), 3)
@@ -77,12 +80,13 @@ def test_thermal_prop_reaches_the_kernel(cuda, monkeypatch):
         return tp.e_occupations_array[-1]
 
     assert backend.device.type == "cuda" and backend.is_32bits
-    before = jacobi_eigh.launches
+    before, blocks = jacobi_eigh.launches, trunc_device.SVD_BLOCKS
     on_card = occupations()
     launches = jacobi_eigh.launches - before
+    svd_blocks = trunc_device.SVD_BLOCKS - blocks
     monkeypatch.setattr(backend, "device", torch.device("cpu"))
     on_cpu = occupations()
-    assert launches > 0
+    assert svd_blocks > 0 and launches == 0
     # both fp32; the CPU run is 4.6e-7 off the dense populations
     np.testing.assert_allclose(on_card, on_cpu, atol=1e-5)
 
@@ -131,3 +135,29 @@ def test_kernel_on_state_averaged_density_matrix_blocks(cuda, monkeypatch):
         assert int(sweeps.max()) < cap and int(sweeps_p.max()) < cap
         norm = max(float(torch.linalg.matrix_norm(a)), 1e-30)
         assert float((w - w_p).abs().max()) < 2e-5 * norm
+
+
+@pytest.mark.cuda
+def test_compress_factors_svd_on_the_card(cuda):
+    """``compress``'s factorization on the card: each sector block of a
+    graded qn-blocked matrix (one column at 1e-10) factored by cuSOLVER's
+    SVD (counted in ``SVD_BLOCKS``, no Jacobi launch), with numpy's
+    singular values of the same blocks and C = u diag(s) v^T."""
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.mps.svd_qn import svd_qn
+
+    rng = np.random.default_rng(7)
+    qnl = rng.integers(0, 2, (40, 2))
+    qnr = rng.integers(0, 2, (30, 2))
+    qntot = np.ones(2, dtype=int)
+    c = rng.standard_normal((40, 30))
+    c[:, 3] *= 1e-10
+    c *= np.all(qnl[:, None, :] + qnr[None, :, :] == qntot, axis=-1)
+    blocks, launches = trunc_device.SVD_BLOCKS, jacobi_eigh.launches
+    u, s, _, v, _, _ = trunc_device.compress_factors(
+        torch.tensor(c, device=cuda), qnl, qnr, qntot, "L", resolve=True)
+    assert trunc_device.SVD_BLOCKS > blocks and jacobi_eigh.launches == launches
+    _, s_host, _, _, _, _ = svd_qn(c, qnl, qnr, qntot, system="L", full_matrices=False)
+    np.testing.assert_allclose(np.sort(s), np.sort(s_host), rtol=0, atol=1e-13)
+    rebuilt = (u * torch.tensor(s, device=cuda)) @ v.T
+    np.testing.assert_allclose(rebuilt.cpu().numpy(), c, rtol=0, atol=1e-12)

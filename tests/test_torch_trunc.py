@@ -159,3 +159,62 @@ def test_basis_quality_f32(system, budget, monkeypatch):
     ms, _ = trunc_device.apply_selection(c, parts, sidx, m, n, system)
     _check_basis(ms, qnl if system == "L" else qnr,
                  [qn_list[i] for i in sidx], 1e-5)
+
+
+def _expanded_chain(seed, monkeypatch):
+    """``MpDm.max_entangled_ex`` of the 3-molecule, 3-level, J = 0.2 chain
+    after the port's ``expand_bond_dimension`` (its ``compress`` inside), as
+    ``ThermalProp`` expands it, with the port's generator seeded by
+    ``seed``."""
+    import renormalizer_tpu_torch as rt
+    from renormalizer_tpu_torch.backend import backend
+
+    monkeypatch.setattr(backend, "_seed", seed)
+    ph = rt.Phonon.simple_phonon(rt.Quantity(1.0), rt.Quantity(0.6), 3)
+    model = rt.HolsteinModel([rt.Mol(rt.Quantity(0.0), [ph], 1.0)] * 3,
+                             rt.Quantity(0.2))
+    return rt.MpDm.max_entangled_ex(model).expand_bond_dimension(rt.Mpo(model))
+
+
+def test_compress_of_the_expansion_does_not_depend_on_the_seed(monkeypatch):
+    """``compress`` factors each sector block by a full SVD, so the padding
+    of an expansion (the exact zeros and the 1e-10-weight directions) comes
+    from the data, not from the generator: seeds 2019 and 1 give the same
+    bond dimensions per sector and the same site tensors up to the sign of
+    each bond state.  Deflating by Gram passes with seeded completions gave
+    other padding columns for each seed, and 10 imaginary-time steps from
+    them ended 4.4e-6 and 1.5e-3 off the dense ensemble."""
+    a = _expanded_chain(2019, monkeypatch)
+    b = _expanded_chain(1, monkeypatch)
+    assert a.bond_dims == b.bond_dims
+    for qa, qb in zip(a.qn, b.qn):
+        la, ca = np.unique(np.asarray(qa), axis=0, return_counts=True)
+        lb, cb = np.unique(np.asarray(qb), axis=0, return_counts=True)
+        np.testing.assert_array_equal(la, lb)
+        np.testing.assert_array_equal(ca, cb)
+    sign = np.ones(1)
+    for mta, mtb in zip(a, b):
+        ma = (sign[:, None] * mta.numpy().reshape(len(sign), -1)).reshape(
+            -1, mta.shape[-1])
+        mb = mtb.numpy().reshape(-1, mtb.shape[-1])
+        sign = np.where(np.einsum("ij,ij->j", ma, mb) < 0, -1.0, 1.0)
+        np.testing.assert_allclose(ma * sign[None, :], mb, rtol=0, atol=1e-8)
+
+
+def test_compress_factors_resolve_the_graded_tail(monkeypatch):
+    """The singular values ``compress`` cuts by are those of numpy's SVD of
+    the same sector blocks, down to the expansion's 1e-10-weight
+    directions and the exact zeros."""
+    mpdm = _expanded_chain(2019, monkeypatch)
+    for idx in mpdm.iter_idx_list(full=False):
+        qnbigl, qnbigr, _ = mpdm._get_big_qn([idx])
+        system = "L" if mpdm.to_right else "R"
+        _, sigma, _, _, _, _ = trunc_device.compress_factors(
+            mpdm[idx], qnbigl, qnbigr, mpdm.qntot, system, resolve=True)
+        _, s_host, _, _, _, _ = svd_qn(mpdm[idx].numpy(), qnbigl, qnbigr,
+                                       mpdm.qntot, system=system,
+                                       full_matrices=False)
+        np.testing.assert_allclose(np.sort(sigma)[::-1],
+                                   np.sort(s_host)[::-1], rtol=0, atol=1e-14)
+        assert (np.asarray(s_host) < 1e-6).any()
+        mpdm._push_cano(idx)

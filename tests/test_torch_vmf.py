@@ -189,11 +189,15 @@ def test_imaginary_time_mu_vmf_mpdm_dense_oracle():
 
 
 def test_tdvp_ps2_raises_on_ofs():
+    """TDVP-PS2 carries OFS, and, as in the JAX package
+    (``renormalizer_tpu/mps/mp.py:929``), OFS raises on a HolsteinModel,
+    whose basis order the model's own bookkeeping fixes; on a generic
+    ``Model`` it swaps (``tests/test_torch_qc.py``)."""
     from renormalizer_tpu_torch.utils import OFS
 
     mps = _port_state("tdvp_ps2")
     mps.compress_config = CompressConfig(ofs=OFS.ofs_s)
-    with pytest.raises(NotImplementedError, match="OFS"):
+    with pytest.raises(NotImplementedError, match="OFS on Holstein model"):
         mps.evolve(MPO, 0.2)
 
 
