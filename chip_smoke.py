@@ -131,11 +131,26 @@ Phases (any failure exits non-zero):
      against expm (each with at least one swap of try_swap_site),
      variational_compress, DmrgFCISolver, read_fcidump; then phase 10(a)'s
      MU-CMF fp32 deviation at seeds 2019, 0 and 1 (a record).
+ 14. the tree engine (renormalizer_tpu_torch.tn): (a) tree DMRG of the
+     DMRG model on BasisTree.binary at M=TREE_M in fp32 through TTNO /
+     TTNS.random / optimize_ttns, the sweeps' lowest energy within
+     TREE_E_TOL of E_REF, every Gram through the kernel (recorded as in
+     phase 12: none at the sweep cap, each solved again by
+     torch.linalg.eigh, the shapes phase 3 did not hold by the plain
+     version; launches_by_path tree_dmrg), the widest and the two most
+     frequent Gram shapes timed against the plain version and
+     torch.linalg.eigh; each sweep's seconds and energy, the largest 2-site
+     coefficient and the peak device memory printed; (b) the pyrazine
+     MCTDH check of tests/test_pyr4.py::test_pyr4_ttns in complex64, the
+     S1/S2 populations within PYR_TOL of tests/data/pyr4_mctdh.npy at all
+     61 points, seconds per step printed; (c) tree TDVP-PS, TDVP-PS2 and
+     VMF against scipy.linalg.expm, state-averaged tree DMRG, the
+     thermofield state and from_mps at TREE_BOUNDS.
 A [summary] line repeats the run's times as JSON, so that the end of the
 output carries them, with the seconds of each phase and of the whole script.  The line before the last holds the kernel record as
 JSON (with the launches of each path: DMRG, SpinBosonDynamics,
 TransportKubo, ChargeDiffusionDynamics, the MU-VMF ThermalProp,
-state-averaged DMRG, SpectraZtCV, QC-DMRG); the last
+state-averaged DMRG, SpectraZtCV, QC-DMRG, tree DMRG); the last
 line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
@@ -146,7 +161,11 @@ runs the DMRG main path under torch.profiler and adds its device time per
 kernel and the card's busy share of that run's wall time; then (phase 7) it
 does the same for one more step of each of 6(a)-(d), of the Kubo job of
 phase 9 and of 10(b)-(d), and counts that step's host synchronisations by
-the operator that asked for them.
+the operator that asked for them, and runs 14(a) under the profiler too.
+
+    python3 chip_smoke.py --tree [--profile]
+
+runs phases 1, 2 and 14 alone and prints no result line.
 """
 
 import collections
@@ -255,6 +274,25 @@ QC_BOUNDS = dict(qc=5e-6, stacked_mpo=1e-4, ofs=1e-5, ofs_dense=1e-5, ofs_tdvp=5
 PADDING_SEEDS = (2019, 0, 1, 2)
 PADDING_TOL = 1e-5
 PADDING_SPREAD = 3
+# phase 14(a): tree DMRG of the DMRG model on BasisTree.binary at TREE_M,
+# gated on the sweeps' lowest energy within TREE_E_TOL of E_REF (12(a)'s fp32
+# gate; the JAX package's tree reaches 0.115038931 at M=16 in fp64 on the CPU)
+TREE_M = 32
+TREE_E_TOL = 1e-5
+# phase 14(b): tests/test_pyr4.py::test_pyr4_ttns's protocol and bound
+PYR_STEPS = 60
+PYR_TOL = 2e-2
+PYR_MCTDH = "tests/data/pyr4_mctdh.npy"
+# phase 14(c): the bounds of tests/test_tn.py and tests/test_torch_tn*.py
+# (fp64), except where a CPU fp32 rehearsal (RENO_PLATFORM=cpu
+# RENO_DTYPE=fp32) could not meet them: the thermofield occupations 1e-10
+# (fp32: 9.93e-9, the rounding of 1/3), its TDVP-PS energy drift 1e-6 (fp32:
+# 1.55e-5) and the from_mps expectation 1e-8 (fp32: 2.38e-7, the rounding of
+# <H> ~ 1), set here to 1e-6, 1e-4 and 1e-6; and the thermofield norm 1e-8,
+# below fp32's resolution at 1 (the rehearsal read 0, the H100 2.98e-8, one
+# unit in the last place), set here to 1e-6
+TREE_BOUNDS = dict(evolve=1e-4, nroots=1e-6, thermofield_occupation=1e-6,
+                   thermofield_energy=1e-4, thermofield_norm=1e-6, from_mps=1e-6)
 # phase 3's tolerances relative to ||A||_F: eigenvalues, |V^T V - I|,
 # |AV - VL| (f32 ones grow as n / 288 past n = 288)
 TOL_F32 = dict(eig=1e-5, orth=1e-4, resid=1e-4)
@@ -2154,6 +2192,293 @@ def phase_qc(card, gram_tol):
              "fp32_sweep_and_double_diffs": devs_32, "padding_fp64": result["padding"]})
 
 
+def _tree_shapes_timed(tag, grams, hist):
+    """The widest and the two most frequent (batch, n) of a path's f32
+    Grams (ties: the wider), each timed on one of the path's own Grams of
+    that shape: the kernel, the plain version (one call, no warm-up) and
+    torch.linalg.eigh in turns by CUDA events, beside the bound."""
+    import torch
+
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_reference
+
+    widest = max(hist, key=lambda bn: (bn[1], bn[0]))
+    frequent = sorted(hist, key=lambda bn: (hist[bn], bn[1]), reverse=True)[:2]
+    timed = {}
+    for b, n in dict.fromkeys([widest] + frequent):
+        a = next(g for g, _, _ in grams.kept[(n, 4)] if g.shape[0] == b)
+        ms = cuda_times_in_turns({
+            "kernel": lambda: jacobi_eigh(a),
+            "torch.linalg.eigh": lambda: torch.linalg.eigh(a),
+            "plain": lambda: jacobi_eigh_reference(a)},
+            {"kernel": 10, "torch.linalg.eigh": 10, "plain": 1},
+            warm=("kernel", "torch.linalg.eigh"))
+        bound, bound_by = jacobi_bound_ms(b, n, 4)
+        kind = " and ".join(k for k, hit in (("widest", (b, n) == widest),
+                                             ("most frequent", (b, n) == frequent[0]),
+                                             ("second most frequent",
+                                              (b, n) == frequent[-1] != frequent[0]))
+                            if hit)
+        print(f"{tag} {kind} Gram shape ({b}, {n}, {n}), {hist[(b, n)]} launches: "
+              f"median ms kernel {ms['kernel']:.3f} plain {ms['plain']:.3f} "
+              f"torch.linalg.eigh {ms['torch.linalg.eigh']:.3f}; bound "
+              f"{bound:.6f} ms ({bound_by})", flush=True)
+        timed[(b, n, n)] = dict(ms, bound_ms=bound, bound_by=bound_by,
+                                launches=hist[(b, n)])
+    return timed
+
+
+def phase_tree_dmrg(card, gram_tol, m=TREE_M, profile=False):
+    """Phase 14(a): tree DMRG of the bench chain (18 sites) on
+    BasisTree.binary at M=m in fp32, through TTNO / TTNS.random /
+    optimize_ttns: the sweeps' lowest energy within TREE_E_TOL of E_REF;
+    every Gram of the truncation through the kernel (recorded, none at the
+    sweep cap, each solved again by torch.linalg.eigh and, for a shape phase
+    3 did not hold, by the plain version); the widest and the most frequent
+    Gram shape timed.  Prints each sweep's seconds and energy, the largest
+    2-site coefficient and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree
+    from renormalizer_tpu_torch.tn import gs as tree_gs
+
+    tag = "[tree a]"
+    model = holstein_chain(6)
+    tree = BasisTree.binary(model.basis)
+    t0 = time.perf_counter()
+    ttno = TTNO(tree, model.ham_terms)
+    backend.sync()
+    ttno_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ttns = TTNS.random(tree, 1, m, percent=1.0)
+    backend.sync()
+    random_s = time.perf_counter() - t0
+    print(f"{tag} {len(tree)} nodes; TTNO of {len(model.ham_terms)} terms "
+          f"{ttno_s:.2f} s, bond dims {ttno.bond_dims}; TTNS.random (host) "
+          f"{random_s:.2f} s, bond dims {ttns.bond_dims}", flush=True)
+    procedure = [[m, 0.4], [m, 0.2]] + [[m, 0]] * 4
+    sweep_times = []
+    recursion = tree_gs.optimize_recursion
+
+    def timed_recursion(snode, state, *args, **kwargs):
+        if snode is not state.root:
+            return recursion(snode, state, *args, **kwargs)
+        backend.sync()
+        t = time.perf_counter()
+        out = recursion(snode, state, *args, **kwargs)
+        backend.sync()
+        sweep_times.append(time.perf_counter() - t)
+        return out
+
+    grams = GramRecord(keep_grams=True)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
+    tree_gs.optimize_recursion = timed_recursion
+    trunc_device.jacobi_eigh = grams
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        jacobi_eigh.launches = 0
+        trunc_device.LINALG_EIGH_GRAMS = 0
+        backend.sync()
+        t0 = time.perf_counter()
+        with prof:
+            energies = tree_gs.optimize_ttns(ttns, ttno, procedure)
+            backend.sync()
+        wall = time.perf_counter() - t0
+        launches = jacobi_eigh.launches
+        elsewhere = trunc_device.LINALG_EIGH_GRAMS
+    finally:
+        tree_gs.optimize_recursion = recursion
+        trunc_device.jacobi_eigh = jacobi_eigh
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        print_device_breakdown(prof, wall, card)
+    lowest = float(min(energies))
+    e_state = ttns.expectation(ttno) / ttns.ttns_norm ** 2
+    largest = max(
+        int(np.prod(n.shape[:-1])) * int(np.prod(n.parent.shape)) // n.shape[-1]
+        for n in ttns.node_list if n.parent is not None)
+    print(f"{tag} energies per sweep {[round(float(e), 10) for e in energies]}",
+          flush=True)
+    print(f"{tag} {len(sweep_times)} sweeps, seconds per sweep ({card}) "
+          f"{[round(t, 4) for t in sweep_times]}; total {wall:.2f} s; lowest "
+          f"{lowest:.10f} (anchor {E_REF}, diff {lowest - E_REF:+.3e}, bound "
+          f"{TREE_E_TOL:.0e}); <psi|H|psi> of the result {e_state:.10f}; bond dims "
+          f"{ttns.bond_dims}; largest 2-site coefficient {largest} entries "
+          f"({largest * 4 / 2**20:.1f} MiB in fp32); peak device memory "
+          f"{peak / 2**30:.3f} GiB; jacobi launches {launches}; Gram eigh "
+          f"elsewhere {elsewhere}", flush=True)
+    hist = grams.report(tag, launches)
+    grams.check_against_library(tag, gram_tol)
+    _hold_unheld(tag, grams, phase3_held(), gram_tol)
+    check(launches > 0, f"{tag} never launched the Jacobi kernel")
+    check(elsewhere == 0, f"{tag} {elsewhere} Gram eigh went around the kernel")
+    check(all(bool(torch.isfinite(n.tensor).all()) for n in ttns)
+          and max(ttns.bond_dims) <= m, f"{tag} bad result")
+    check(abs(lowest - E_REF) < TREE_E_TOL,
+          f"{tag} energy {lowest} not within {TREE_E_TOL} of {E_REF}")
+    timed = _tree_shapes_timed(tag, grams, hist)
+    return launches, dict(sweeps=sweep_times, energy_diff=lowest - E_REF,
+                          peak_gib=peak / 2**30, timed=timed)
+
+
+def phase_tree_pyrazine(card, nsteps=PYR_STEPS):
+    """Phase 14(b): tests/test_pyr4.py::test_pyr4_ttns on the card in
+    complex64: 4-mode pyrazine (nbas 30) on BasisTree.binary from S2,
+    expand_bond_dimension(ttno), TDVP-PS with CompressConfig(fixed,
+    max_bonddim=10), 60 steps of 2 fs; S1/S2 populations within PYR_TOL of
+    the Heidelberg MCTDH data at every point."""
+    import numpy as np
+    import torch
+
+    from renormalizer_tpu_torch import CompressConfig, CompressCriteria, EvolveConfig, EvolveMethod, Op
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.model.pyrazine import E_DOFS, pyrazine_model
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree
+    from renormalizer_tpu_torch.utils.constant import fs2au
+
+    tag = "[tree b]"
+    mctdh = np.load(PYR_MCTDH)[::4][:nsteps + 1, 1:]
+    model = pyrazine_model()
+    tree = BasisTree.binary(model.basis)
+    jacobi_eigh.launches = 0
+    t0 = time.perf_counter()
+    ttno = TTNO(tree, model.ham_terms)
+    ttns = TTNS(tree, condition={"s2": 1}).expand_bond_dimension(ttno)
+    ttns.evolve_config = EvolveConfig(EvolveMethod.tdvp_ps)
+    ttns.compress_config = CompressConfig(CompressCriteria.fixed, max_bonddim=10)
+    occ_ttnos = [TTNO(tree, [Op(r"a^\dagger a", s)]) for s in E_DOFS]
+    occ = [[float(np.real(ttns.expectation(o))) for o in occ_ttnos]]
+    backend.sync()
+    setup = time.perf_counter() - t0
+    steps = []
+    for _ in range(nsteps):
+        t0 = time.perf_counter()
+        ttns = ttns.evolve(ttno, 2 * fs2au)
+        backend.sync()
+        steps.append(time.perf_counter() - t0)
+        occ.append([float(np.real(ttns.expectation(o))) for o in occ_ttnos])
+    occ = np.array(occ)
+    dev = np.abs(occ - mctdh)
+    print(f"{tag} set-up {setup:.2f} s; {nsteps} TDVP-PS steps of 2 fs, seconds "
+          f"per step ({card}) mean {np.mean(steps):.4f} min {min(steps):.4f} max "
+          f"{max(steps):.4f}, total {sum(steps):.2f} s; state {ttns.root.tensor.dtype}, "
+          f"bond dims {ttns.bond_dims}; jacobi launches {jacobi_eigh.launches}",
+          flush=True)
+    print(f"{tag} S1/S2 populations at 0, 30, 60, 90, 120 fs: "
+          f"{[[round(float(x), 4) for x in occ[i]] for i in range(0, nsteps + 1, 15)]}; "
+          f"MCTDH {[[round(float(x), 4) for x in mctdh[i]] for i in range(0, nsteps + 1, 15)]}; "
+          f"largest deviation {dev.max():.3e} at {2 * int(dev.max(axis=1).argmax())} fs "
+          f"(bound {PYR_TOL})", flush=True)
+    check(ttns.root.tensor.dtype == torch.complex64, f"{tag} state is {ttns.root.tensor.dtype}")
+    check(np.isfinite(occ).all() and dev.max() < PYR_TOL,
+          f"{tag} populations {dev.max():.3e} off MCTDH")
+    return steps, float(dev.max())
+
+
+def phase_tree_oracles():
+    """Phase 14(c): the tree engine's small oracles on tests/test_tn.py's
+    models in fp32, at TREE_BOUNDS: TDVP-PS, TDVP-PS2 and VMF against
+    scipy.linalg.expm, state-averaged tree DMRG (2 roots) against the dense
+    sector spectrum, the thermofield state (max_entangled_ex) and its
+    TDVP-PS, and the from_mps round trip."""
+    import numpy as np
+    import scipy.linalg
+
+    from renormalizer_tpu_torch import (
+        CompressConfig, EvolveConfig, EvolveMethod, HolsteinModel, Mol, Mpo, Mps,
+        Op, Phonon, Quantity)
+    from renormalizer_tpu_torch.tn import (
+        TTNO, TTNS, BasisTree, from_mps, max_entangled_ex, optimize_ttns)
+    from renormalizer_tpu_torch.tn.time_evolution import TREE_COUNTS
+
+    tag = "[tree c]"
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
+    tree = BasisTree.binary(model.basis)
+    ttno = TTNO(tree, model.ham_terms)
+    start = TTNS(tree, condition={0: 1}).expand_bond_dimension(ttno)
+    h = dense_operator(model, model.ham_terms)
+    occ_ops = [dense_operator(model, [Op(r"a^\dagger a", d)]) for d in model.e_dofs]
+    occ_ttnos = [TTNO(tree, [Op(r"a^\dagger a", d)]) for d in model.e_dofs]
+    results = {}
+    for method in ("tdvp_ps", "tdvp_ps2", "tdvp_vmf"):
+        ttns = start.copy()
+        ttns.evolve_config = EvolveConfig(EvolveMethod[method])
+        if method == "tdvp_ps2":
+            ttns.compress_config = CompressConfig(threshold=1e-7)
+        psi0 = ttns.todense(order=model.basis).ravel().astype(complex)
+        counts0 = dict(TREE_COUNTS)
+        devs = []
+        for i in range(1, 6):
+            ttns = ttns.evolve(ttno, 0.2)
+            psi = scipy.linalg.expm(-1j * h * 0.2 * i) @ psi0
+            oracle = [np.real(psi.conj() @ o @ psi) for o in occ_ops]
+            devs.append(np.abs(np.array([ttns.expectation(o) for o in occ_ttnos])
+                               - oracle).mean())
+        results[method] = float(np.mean(devs))
+        print(f"{tag} {method}: 5 steps of 0.2, mean occupation deviation from "
+              f"expm {results[method]:.3e} (bound {TREE_BOUNDS['evolve']}); "
+              f"Krylov propagations {TREE_COUNTS['local_steps'] - counts0['local_steps']}, "
+              f"VMF overlaps read to the host "
+              f"{TREE_COUNTS['vmf_host_reads'] - counts0['vmf_host_reads']}", flush=True)
+        check(results[method] < TREE_BOUNDS["evolve"], f"{tag} {method} {results[method]}")
+
+    ttns = TTNS.random(tree, 1, 16)
+    ttns.optimize_config.nroots = 2
+    energies = optimize_ttns(ttns, ttno, [[8, 0.4], [16, 0.2], [16, 0], [16, 0], [16, 0]])
+    sector = np.nonzero(_sector_of(model, len(h)) == 1)[0]
+    exact = np.linalg.eigvalsh(h[np.ix_(sector, sector)].real)[:2]
+    results["nroots"] = float(np.abs(np.sort(energies[-1]) - exact).max())
+    print(f"{tag} state-averaged tree DMRG, 2 roots: {sorted(energies[-1])} against "
+          f"{exact.tolist()}, largest deviation {results['nroots']:.3e} (bound "
+          f"{TREE_BOUNDS['nroots']})", flush=True)
+    check(results["nroots"] < TREE_BOUNDS["nroots"], f"{tag} nroots {results['nroots']}")
+
+    tree2 = tree.add_auxiliary_space()
+    hot = max_entangled_ex(tree2)
+    occ0 = [hot.expectation(TTNO(tree2, [Op(r"a^\dagger a", d)])) for d in model.e_dofs]
+    results["thermofield_occupation"] = float(np.abs(np.array(occ0) - 1 / 3).max())
+    ttno2 = TTNO(tree2, model.ham_terms)
+    hot = hot.expand_bond_dimension(ttno2)
+    hot.evolve_config = EvolveConfig(EvolveMethod.tdvp_ps)
+    e0 = hot.expectation(ttno2)
+    for _ in range(3):
+        hot = hot.evolve(ttno2, 4.0)
+    results["thermofield_energy"] = float(abs(hot.expectation(ttno2) - e0))
+    results["thermofield_norm"] = float(abs(hot.ttns_norm - 1))
+    print(f"{tag} max_entangled_ex: occupations {[round(float(x), 8) for x in occ0]}; "
+          f"after 3 TDVP-PS steps of 4.0 energy drift {results['thermofield_energy']:.3e}, "
+          f"norm - 1 {results['thermofield_norm']:.3e} (bounds "
+          f"{TREE_BOUNDS['thermofield_occupation']}, {TREE_BOUNDS['thermofield_energy']}, "
+          f"{TREE_BOUNDS['thermofield_norm']})", flush=True)
+    for key in ("thermofield_occupation", "thermofield_energy", "thermofield_norm"):
+        check(results[key] < TREE_BOUNDS[key], f"{tag} {key} {results[key]}")
+
+    mps = Mps.random(model, 1, 8)
+    _, ttns, ttno_lin = from_mps(mps)
+    results["from_mps"] = float(abs(ttns.expectation(ttno_lin) - mps.expectation(Mpo(model))))
+    print(f"{tag} from_mps: |<H>_tree - <H>_mps| {results['from_mps']:.3e} (bound "
+          f"{TREE_BOUNDS['from_mps']})", flush=True)
+    check(results["from_mps"] < TREE_BOUNDS["from_mps"], f"{tag} from_mps {results['from_mps']}")
+    return results
+
+
+def phase_tree(card, gram_tol, profile=False):
+    """Phase 14: the tree engine, (a) tree DMRG at full width, (b) the
+    pyrazine MCTDH check, (c) the small oracles."""
+    launches, dmrg = phase_tree_dmrg(card, gram_tol, profile=profile)
+    steps, pyr_dev = phase_tree_pyrazine(card)
+    oracles = phase_tree_oracles()
+    return launches, dict(dmrg, pyrazine_steps=steps, pyrazine_dev=pyr_dev,
+                          oracles=oracles)
+
+
 def phase_profile_step(card, tag, step):
     """Phase 7: one more evolution step (``step()``) under torch.profiler."""
     import torch
@@ -2252,6 +2577,15 @@ def main():
         # phase 13's child process (RENO_DTYPE=fp64)
         phase_qc_fp64(phase_environment()[1])
         return
+    if "--tree" in sys.argv[1:]:
+        # phases 1, 2 and 14 alone (with --profile: 14(a) under the
+        # profiler); no kernel record and no result line
+        _, card = phase_environment()
+        phase_build()
+        phase_tree(card, TOL_F32, profile)
+        print(f"[tree] phases 1, 2 and 14 passed in "
+              f"{time.perf_counter() - _T0:.1f} s", flush=True)
+        return
     phase_s = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -2283,6 +2617,7 @@ def main():
     timed("11", phase_excited_oracles)
     excited_launches, excited_s = timed("12", phase_excited_jobs, card, record["tol_f32"])
     qc_launches, qc_s = timed("13", phase_qc, card, record["tol_f32"])
+    tree_launches, tree_s = timed("14", phase_tree, card, record["tol_f32"], profile)
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -2304,6 +2639,18 @@ def main():
         "padding_fp64": [f"{v:.3e}" for v in qc_s["padding_fp64"]],
         "qc_fp32_sweep_and_double_diffs": [
             f"{d:+.3e}" for d in qc_s["fp32_sweep_and_double_diffs"]],
+        "tree_dmrg_sweep_seconds": [round(t, 4) for t in tree_s["sweeps"]],
+        "tree_dmrg_energy_diff": f"{tree_s['energy_diff']:+.3e}",
+        "tree_dmrg_peak_gib": round(tree_s["peak_gib"], 3),
+        "tree_gram_ms": {str(k): {n: round(v[n], 3) for n in
+                                  ("kernel", "plain", "torch.linalg.eigh")}
+                         for k, v in tree_s["timed"].items()},
+        "pyrazine_step_seconds": [round(min(tree_s["pyrazine_steps"]), 4),
+                                  round(sum(tree_s["pyrazine_steps"])
+                                        / len(tree_s["pyrazine_steps"]), 4),
+                                  round(max(tree_s["pyrazine_steps"]), 4)],
+        "pyrazine_max_deviation": f"{tree_s['pyrazine_dev']:.3e}",
+        "tree_oracles": {k: f"{v:.3e}" for k, v in tree_s["oracles"].items()},
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
@@ -2313,7 +2660,8 @@ def main():
         "script_seconds": round(time.perf_counter() - _T0, 1)}), flush=True)
     by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
                "transport_kubo": kubo_launches, **vmf_launches, **excited_launches,
-               "qc": qc_launches["fp64"] + qc_launches["fp32"]}
+               "qc": qc_launches["fp64"] + qc_launches["fp32"],
+               "tree_dmrg": tree_launches}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
           f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
           f"constructor {kubo_launches}, ChargeDiffusionDynamics (b)-(c) "
@@ -2321,7 +2669,8 @@ def main():
           f"{vmf_launches['thermal_vmf']}, state-averaged DMRG (12a) "
           f"{excited_launches['state_averaged_dmrg']}, SpectraZtCV (12b) "
           f"{excited_launches['cv_zerot']}, H2O QC-DMRG (13a fp64 + 13b fp32) "
-          f"{qc_launches['fp64']} + {qc_launches['fp32']}", flush=True)
+          f"{qc_launches['fp64']} + {qc_launches['fp32']}, tree DMRG (14a) "
+          f"{tree_launches}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,

@@ -1,4 +1,5 @@
-"""Carry MPS/MPO objects between the port and another implementation.
+"""Carry MPS/MPO and tree (TTNS/TTNO) objects between the port and another
+implementation.
 
 The tests start the JAX package and the port from one state: the JAX site
 tensors travel as numpy arrays (``np.asarray(jax_mps[i])``) together with
@@ -6,7 +7,10 @@ the quantum-number bookkeeping, and ``mps_from_numpy``/``mpo_from_numpy``
 rebuild the port's objects around them on the backend device
 (``mpdm_from_object`` for a density matrix with 4-leg sites).
 ``mps_to_numpy`` is the way back: everything another implementation needs
-to rebuild an (evolved) port state.
+to rebuild an (evolved) port state.  ``ttns_from_object``/``ttno_from_object``
+and ``ttns_to_numpy`` do the same for trees: one tensor and one qn array per
+node, in ``node_list`` (preorder) order, on the port's basis tree of the
+same system.
 """
 
 from typing import Sequence
@@ -119,3 +123,65 @@ def mpo_from_numpy(model: Model, arrays, qn, qnidx: int, to_right: bool,
                    qntot) -> Mpo:
     """An :class:`Mpo` holding ``arrays`` (one (l, d, d, r) array per site)."""
     return _fill(Mpo(), model, arrays, qn, qnidx, to_right, qntot)
+
+
+def _tree_root(basis_tree, arrays, qn):
+    from renormalizer_tpu_torch.tn.node import TreeNodeTensor, copy_connection
+
+    nodes = [TreeNodeTensor(np.asarray(a), np.asarray(q)) for a, q in zip(arrays, qn)]
+    assert len(nodes) == len(basis_tree.node_list)
+    return copy_connection(basis_tree.node_list, nodes)
+
+
+def ttns_from_numpy(basis_tree, arrays, qn, coeff=1, compress_config=None,
+                    evolve_config=None):
+    """A :class:`~renormalizer_tpu_torch.tn.TTNS` on ``basis_tree`` holding
+    ``arrays`` (one tensor per node in ``node_list`` order, layout
+    ``[children..., physical..., parent]``) with the per-node bond quantum
+    numbers ``qn`` (the root's row is the total quantum number).  The
+    evolve config keeps VMF's ``reg_epsilon``, ``ivp_rtol`` and ``ivp_atol``
+    of ``evolve_config`` too."""
+    from renormalizer_tpu_torch.tn import TTNS
+
+    ttns = TTNS(basis_tree, root=_tree_root(basis_tree, arrays, qn))
+    ttns.coeff = coeff
+    if compress_config is not None:
+        ttns.compress_config = carry_compress_config(compress_config)
+    if evolve_config is not None:
+        ttns.evolve_config = carry_evolve_config(evolve_config)
+        for field in ("reg_epsilon", "ivp_rtol", "ivp_atol", "force_ovlp"):
+            setattr(ttns.evolve_config, field, getattr(evolve_config, field))
+    return ttns
+
+
+def ttns_from_object(basis_tree, other):
+    """The port's copy of the tree state ``other`` (any object with the JAX
+    package's TTNS fields: ``node_list`` of nodes with ``tensor`` and
+    ``qn``, ``coeff``, ``compress_config``, ``evolve_config``) on the port's
+    ``basis_tree`` of the same system and topology."""
+    return ttns_from_numpy(
+        basis_tree, [np.asarray(n.tensor) for n in other.node_list],
+        [n.qn for n in other.node_list], coeff=other.coeff,
+        compress_config=other.compress_config, evolve_config=other.evolve_config)
+
+
+def ttns_to_numpy(ttns) -> dict:
+    """The tree state as host data: ``arrays`` and ``qn`` per node in
+    ``node_list`` order, ``qntot`` and ``coeff``."""
+    return {
+        "arrays": [to_numpy(n.tensor) for n in ttns.node_list],
+        "qn": [np.asarray(n.qn).copy() for n in ttns.node_list],
+        "qntot": np.asarray(ttns.qntot).copy(),
+        "coeff": ttns.coeff,
+    }
+
+
+def ttno_from_object(basis_tree, other, terms=None):
+    """The port's copy of the tree operator ``other`` (``node_list`` of
+    nodes with ``tensor`` and ``qn``) on ``basis_tree``; ``terms`` are the
+    port's operator terms it stands for (default: none)."""
+    from renormalizer_tpu_torch.tn import TTNO
+
+    return TTNO(basis_tree, [] if terms is None else terms,
+                root=_tree_root(basis_tree, [np.asarray(n.tensor) for n in other.node_list],
+                                [n.qn for n in other.node_list]))

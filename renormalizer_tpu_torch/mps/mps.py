@@ -1164,15 +1164,19 @@ class Mps(MatrixProduct):
 
 
 def normalize(tn, kind):
-    """Normalization of an MPS (reference ``mps.py:2025-2059``)."""
-    if kind == "mps_only":
+    """Normalization of an MPS or a TTNS (reference ``mps.py:2025-2059``);
+    a TTNS (no ``mp_norm``) takes its norm from ``ttns_norm``, and the
+    ``ttns_*`` kinds mean the same as the ``mps_*`` ones."""
+    if kind == "mps_only" and hasattr(tn, "mp_norm"):
         # the norm only rescales the state, so it stays on the device
         tn[tn.qnidx] = normalize_chain_device(list(tn), tn.qnidx)
         return tn
-    tn_norm = tn.mp_norm
-    if kind == "mps_and_coeff":
+    tn_norm = tn.mp_norm if hasattr(tn, "mp_norm") else tn.ttns_norm
+    if kind in ("mps_only", "ttns_only"):
+        new_coeff = tn.coeff
+    elif kind in ("mps_and_coeff", "ttns_and_coeff"):
         new_coeff = tn.coeff / np.linalg.norm(tn.coeff)
-    elif kind == "mps_norm_to_coeff":
+    elif kind in ("mps_norm_to_coeff", "ttns_norm_to_coeff"):
         new_coeff = tn.coeff * tn_norm
     else:
         raise ValueError(f"kind={kind} is not valid.")
@@ -1206,7 +1210,9 @@ def expand_bond_dimension_general(mps, hint_mpo=None, coef=1e-10, ex_mps=None):
     """Bond-dimension expander (reference ``mps.py:1963-2023``): add a small
     multiple of a state that spans the wanted bond dimensions (random, or
     the compressed powers of ``hint_mpo`` applied to the state), then
-    compress back to the configured maximum."""
+    compress back to the configured maximum.  Shared with the tree engine:
+    a TTNS (``tn.tree.TTNS``, no ``model``) draws its random expander on its
+    ``basis`` tree."""
     mps.compress_config.set_bonddim(len(mps.bond_dims))
     m_target = np.minimum(
         np.array(mps.compress_config.max_dims) - np.array(mps.bond_dims),
@@ -1215,7 +1221,8 @@ def expand_bond_dimension_general(mps, hint_mpo=None, coef=1e-10, ex_mps=None):
     logger.debug(f"target for expander: {m_target.tolist()}")
 
     if hint_mpo is None:
-        expander = mps.__class__.random(mps.model, mps.qntot, m_target)
+        expander = mps.__class__.random(
+            mps.model if hasattr(mps, "model") else mps.basis, mps.qntot, m_target)
     else:
         lastone = mps if ex_mps is None else mps + ex_mps
         expander_list = []

@@ -1,14 +1,20 @@
-r"""Tensor contractions of the MPS engine, in torch.
+r"""Tensor contractions of the MPS and tree engines, in torch.
 
 Port of ``renormalizer_tpu/ops/contract.py``.  The JAX package hands each
 einsum to XLA; here :func:`einsum` contracts pairwise in an order chosen
-once per (formula, shapes) by an exhaustive search over pairwise orders
-(the operand counts are at most seven), and each pairwise step is a
-``torch.einsum`` of two operands, i.e. a batched matmul.  These are plain
-large products that the JAX package ran outside any Pallas kernel.
+once per (formula, shapes): by an exhaustive search over pairwise orders up
+to :data:`EXACT_MAX` operands (every MPS formula, the binary tree's 2-site
+hop), and above it greedily, cheapest pair first (the 2-site hop of
+``t3ns``/``ternary_mctdh`` trees has 8-9 operands, ``todense`` of a tree one
+per node, and the exhaustive search grows as 3^n).  Each pairwise step is a
+``torch.einsum`` of two operands, i.e. a batched matmul; a label repeated
+inside one operand takes that operand's diagonal, as in ``torch.einsum`` of
+the whole formula.  These are plain large products that the JAX package ran
+outside any Pallas kernel.  :func:`einsum_interleaved` takes hashable labels
+(the tree engine's) instead of letters.
 """
 
-import itertools
+import string
 from typing import Dict, Tuple
 
 import torch
@@ -18,10 +24,20 @@ import torch
 # are small plain data, one per distinct shape.
 _PLANS: Dict[Tuple, Tuple] = {}
 
+# operand counts up to which the pairwise order is searched exhaustively
+EXACT_MAX = 8
+
 
 def _parse(formula: str):
     ins, out = formula.replace(" ", "").split("->")
     return ins.split(","), out
+
+
+def _flops(letters, sizes) -> int:
+    flops = 1
+    for c in letters:
+        flops *= sizes[c]
+    return flops
 
 
 def _best_tree(terms, out: str, sizes: Dict[str, int]):
@@ -29,32 +45,52 @@ def _best_tree(terms, out: str, sizes: Dict[str, int]):
     dynamic programming over operand subsets.  A tree is an operand index
     or a pair of trees."""
     n = len(terms)
-    letters_of = [set(t) for t in terms]
-
-    def kept(mask):
-        inside = set().union(*(letters_of[i] for i in range(n) if mask >> i & 1))
-        outside = set(out).union(
-            *(letters_of[i] for i in range(n) if not mask >> i & 1))
-        return inside & outside
+    full = (1 << n) - 1
+    inside = [frozenset()] * (1 << n)
+    for mask in range(1, 1 << n):
+        low = mask & -mask
+        inside[mask] = inside[mask ^ low] | set(terms[low.bit_length() - 1])
+    # the labels an intermediate of the operands in ``mask`` keeps
+    kept = [inside[m] & (inside[full ^ m] | set(out)) for m in range(1 << n)]
 
     best = {1 << i: (0, i) for i in range(n)}
-    for size in range(2, n + 1):
-        for combo in itertools.combinations(range(n), size):
-            mask = sum(1 << i for i in combo)
-            cand = None
-            sub = (mask - 1) & mask
-            while sub:
-                other = mask ^ sub
-                if sub < other:  # each split once
-                    flops = 1
-                    for c in kept(sub) | kept(other):
-                        flops *= sizes[c]
-                    cost = best[sub][0] + best[other][0] + flops
-                    if cand is None or cost < cand[0]:
-                        cand = (cost, (best[sub][1], best[other][1]))
-                sub = (sub - 1) & mask
-            best[mask] = cand
-    return best[(1 << n) - 1][1]
+    for mask in sorted(range(1, 1 << n), key=lambda m: bin(m).count("1")):
+        if mask in best:
+            continue
+        cand = None
+        sub = (mask - 1) & mask
+        while sub:
+            other = mask ^ sub
+            if sub < other:  # each split once
+                cost = (best[sub][0] + best[other][0]
+                        + _flops(kept[sub] | kept[other], sizes))
+                if cand is None or cost < cand[0]:
+                    cand = (cost, (best[sub][1], best[other][1]))
+            sub = (sub - 1) & mask
+        best[mask] = cand
+    return best[full][1]
+
+
+def _greedy_tree(terms, out: str, sizes: Dict[str, int]):
+    """Pairwise contraction tree built greedily: at each step the pair whose
+    contraction costs the fewest multiply-adds (ties: the smaller result).
+    For operand counts past :data:`EXACT_MAX`."""
+    active = [(i, set(t)) for i, t in enumerate(terms)]
+    while len(active) > 1:
+        pick = None
+        for a in range(len(active)):
+            for b in range(a + 1, len(active)):
+                outside = set(out).union(*(active[k][1] for k in range(len(active))
+                                           if k not in (a, b)))
+                union = active[a][1] | active[b][1]
+                key = (_flops(union, sizes), _flops(union & outside, sizes))
+                if pick is None or key < pick[0]:
+                    pick = (key, a, b, union & outside)
+        _, a, b, letters = pick
+        node = (active[a][0], active[b][0])
+        active = [x for k, x in enumerate(active) if k not in (a, b)]
+        active.append((node, letters))
+    return active[0][0]
 
 
 def _plan(formula: str, shapes) -> Tuple:
@@ -81,7 +117,8 @@ def _plan(formula: str, shapes) -> Tuple:
         slots.append(lo)
         return len(slots) - 1, leaves
 
-    root, _ = emit(_best_tree(terms, out, sizes))
+    search = _best_tree if len(terms) <= EXACT_MAX else _greedy_tree
+    root, _ = emit(search(terms, out, sizes))
     plan = (tuple(steps), None if slots[root] == out else f"{slots[root]}->{out}")
     _PLANS[key] = plan
     return plan
@@ -108,6 +145,52 @@ def einsum(formula: str, *arrays: torch.Tensor) -> torch.Tensor:
         vals[a] = vals[b] = None  # free intermediates early
     res = vals[-1]
     return res if final is None else torch.einsum(final, res)
+
+
+# --- interleaved einsum over hashable index labels ------------------------
+# the tree engine names an index by a (tree, parent-dofs, child-dofs) tuple
+# rather than by a letter
+
+_LETTERS = string.ascii_letters
+
+
+def label_formula(index_lists, out_indices) -> str:
+    """The einsum formula of operands labeled by ``index_lists`` with the
+    output ``out_indices``: each distinct label becomes one of the 52
+    letters ``a-zA-Z`` that ``torch.einsum`` accepts, in order of first
+    appearance."""
+    label_map = {}
+
+    def to_letters(labels):
+        out = []
+        for lab in labels:
+            if lab not in label_map:
+                if len(label_map) == len(_LETTERS):
+                    raise ValueError(
+                        f"einsum over more than {len(_LETTERS)} distinct labels: "
+                        "torch.einsum accepts only the letters a-zA-Z")
+                label_map[lab] = _LETTERS[len(label_map)]
+            out.append(label_map[lab])
+        return "".join(out)
+
+    lhs = ",".join(to_letters(labels) for labels in index_lists)
+    return lhs + "->" + to_letters(out_indices)
+
+
+def interleaved_formula(*args):
+    """Map ``(t0, idx0, t1, idx1, ..., out_idx)`` label lists to a standard
+    einsum ``(formula, tensors)`` pair without contracting."""
+    assert len(args) % 2 == 1
+    *pairs, out_indices = args
+    return label_formula(pairs[1::2], out_indices), list(pairs[0::2])
+
+
+def einsum_interleaved(*args):
+    """``einsum_interleaved(t0, idx0, t1, idx1, ..., out_idx)`` where each
+    ``idx`` is a sequence of hashable labels: :func:`einsum` of the letter
+    formula :func:`label_formula` makes of them."""
+    formula, tensors = interleaved_formula(*args)
+    return einsum(formula, *tensors)
 
 
 # --- environment single-site updates ------------------------------------

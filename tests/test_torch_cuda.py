@@ -161,3 +161,27 @@ def test_compress_factors_svd_on_the_card(cuda):
     np.testing.assert_allclose(np.sort(s), np.sort(s_host), rtol=0, atol=1e-13)
     rebuilt = (u * torch.tensor(s, device=cuda)) @ v.T
     np.testing.assert_allclose(rebuilt.cpu().numpy(), c, rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_tree_dmrg_reaches_the_kernel(cuda):
+    """Tree DMRG (``tests/test_tn.py::test_optimize_ttns``'s model and
+    procedure on a binary tree) on the card in fp32: every 2-site update's
+    truncation launches the Jacobi kernel, and the lowest energy lies within
+    1e-5 of the dense sector energy (0.3361574422, ``exact_model``)."""
+    from renormalizer_tpu_torch import HolsteinModel, Mol, Phonon, Quantity
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree, optimize_ttns
+
+    assert backend.device.type == "cuda" and backend.is_32bits
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
+    tree = BasisTree.binary(model.basis)
+    ttns = TTNS.random(tree, 1, 16)
+    before = jacobi_eigh.launches
+    energies = optimize_ttns(ttns, TTNO(tree, model.ham_terms),
+                             [[16, 0.4], [16, 0.2], [16, 0], [16, 0]])
+    # four sweeps of the tree's five bonds, one truncation each
+    assert jacobi_eigh.launches - before >= 4 * 5
+    assert ttns.root.tensor.device.type == "cuda"
+    assert abs(min(energies) - 0.3361574422) < 1e-5
