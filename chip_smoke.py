@@ -146,11 +146,34 @@ Phases (any failure exits non-zero):
      61 points, seconds per step printed; (c) tree TDVP-PS, TDVP-PS2 and
      VMF against scipy.linalg.expm, state-averaged tree DMRG, the
      thermofield state and from_mps at TREE_BOUNDS.
+ 15. the site update's host-hiding machinery and the tiering, on the
+     DMRG model (every sweep of the procedure run, as bench.py drives its
+     steady state; per sweep the seconds, PLAN_STATS, the host reads of a
+     spectrum, the index cache's hits and misses): (a) phase 4's DMRG
+     with the asynchronous static-plan selection (RENO_ASYNC_TRUNC=1, the
+     card's default), without it (=0), then without and with it again
+     (the two modes timed in alternated order), each within E_TOL of E_REF,
+     static updates in the percent-0 sweeps reading no spectrum; (b)
+     threshold-criteria DMRG from (a)'s converged state (CompressCriteria.
+     both, SKETCH_THRESHOLD, max_bonddim M; 2-site ranks up to 1536) exact,
+     sketched (exact cap SKETCH_EXACT_CAP: the default sketch of
+     SKETCH_GRAM states; frob_norm must run) and starved (a sketch of one
+     state: the saturation check must retry exactly on the device), each
+     within E_TOL of E_REF and within SKETCH_RTOL of each other; (c) (a)'s
+     synchronous run with RENO_HOST_OFFLOAD=2 and every site offloadable:
+     evictions and restores, cold tensors in pinned host memory, energies
+     within OFFLOAD_RTOL of (a)'s, peak device memory of both; (d) 14(a)
+     with and without the tree's plan reuse; (e) a trace from RENO_PROFILE.
+     Every Gram shape held against the plain version (phase 3, which holds
+     and times the (2, SKETCH_GRAM) Gram, or _hold_unheld); the sketched
+     run's most frequent and widest shapes timed; launches_by_path
+     async_dmrg, sync_dmrg, sketch_threshold_dmrg, offload_dmrg,
+     tree_dmrg_async.
 A [summary] line repeats the run's times as JSON, so that the end of the
 output carries them, with the seconds of each phase and of the whole script.  The line before the last holds the kernel record as
 JSON (with the launches of each path: DMRG, SpinBosonDynamics,
 TransportKubo, ChargeDiffusionDynamics, the MU-VMF ThermalProp,
-state-averaged DMRG, SpectraZtCV, QC-DMRG, tree DMRG); the last
+state-averaged DMRG, SpectraZtCV, QC-DMRG, tree DMRG, phase 15's); the last
 line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
@@ -165,7 +188,11 @@ the operator that asked for them, and runs 14(a) under the profiler too.
 
     python3 chip_smoke.py --tree [--profile]
 
-runs phases 1, 2 and 14 alone and prints no result line.
+runs phases 1, 2 and 14 alone and prints no result line, and
+
+    python3 chip_smoke.py --hide
+
+phases 1, 2, 4 and 15 (no result line).
 """
 
 import collections
@@ -283,6 +310,22 @@ TREE_E_TOL = 1e-5
 PYR_STEPS = 60
 PYR_TOL = 2e-2
 PYR_MCTDH = "tests/data/pyr4_mctdh.npy"
+# phase 15(b): threshold-criteria DMRG from 15(a)'s converged M=256 state,
+# whose phonon-phonon 2-site coefficients are (1536, 1536) of rank 1536:
+# CompressCriteria.both at SKETCH_THRESHOLD and max_bonddim M, SKETCH_SWEEPS
+# percent-0 sweeps.  The sketched and starved runs lower
+# trunc_device.EXACT_CAP to SKETCH_EXACT_CAP, below that rank, so those
+# updates sketch the default SKETCH_CAP + OVERSAMPLE = 1056 states (the
+# starved run SKETCH_CAP = 1: 33 states, which the saturation check must
+# reject).  The three runs' lowest energies agree to SKETCH_RTOL
+# (relative); 15(c)'s energies equal 15(a)'s synchronous run's to
+# OFFLOAD_RTOL
+SKETCH_THRESHOLD = 1e-6
+SKETCH_EXACT_CAP = 1024
+SKETCH_SWEEPS = 2
+SKETCH_GRAM = 1056
+SKETCH_RTOL = 1e-6
+OFFLOAD_RTOL = 1e-8
 # phase 14(c): the bounds of tests/test_tn.py and tests/test_torch_tn*.py
 # (fp64), except where a CPU fp32 rehearsal (RENO_PLATFORM=cpu
 # RENO_DTYPE=fp32) could not meet them: the thermofield occupations 1e-10
@@ -449,6 +492,9 @@ def _phase3_cases():
                   if size == 8 or n not in held]
     # phase 12's widest and most frequent shapes that no earlier case holds
     cases += [((b, n, n), torch.float32, 9000 + 10 * n + b) for b, n in EXCITED_PATH_GRAMS]
+    # the sketched threshold mode's Gram of phase 15(b): two sectors of
+    # trunc_device.SKETCH_CAP + OVERSAMPLE states
+    cases += [((2, SKETCH_GRAM, SKETCH_GRAM), torch.float32, SKETCH_GRAM)]
     return cases
 
 
@@ -517,11 +563,13 @@ def phase_kernels():
     cap = default_sweeps(torch.float32) + MAX_EXTRA_SWEEPS
     # the DMRG path's two widest shapes, the evolution path's most frequent
     # one (78 of the 403 launches of phase 6(d)), the Kubo path's widest
-    # (106) and three most frequent (8, 2, 25) of phase 9, and phase 12's
-    # widest and batched shapes (EXCITED_PATH_GRAMS)
+    # (106) and three most frequent (8, 2, 25) of phase 9, phase 12's
+    # widest and batched shapes (EXCITED_PATH_GRAMS) and phase 15(b)'s
+    # sketched Gram
     for shape in ((2, 288, 288), (1, 544, 544), (1, 48, 48), (1, 106, 106),
                   (1, 8, 8), (1, 2, 2), (1, 25, 25),
-                  *((b, n, n) for b, n in EXCITED_PATH_GRAMS)):
+                  *((b, n, n) for b, n in EXCITED_PATH_GRAMS),
+                  (2, SKETCH_GRAM, SKETCH_GRAM)):
         # the first timed input is drawn after the clustered case, as in
         # earlier runs; the others from their own seeds
         a = _symmetric(rng if shape[-1] == 288
@@ -2194,7 +2242,7 @@ def phase_qc(card, gram_tol):
 
 def _tree_shapes_timed(tag, grams, hist):
     """The widest and the two most frequent (batch, n) of a path's f32
-    Grams (ties: the wider), each timed on one of the path's own Grams of
+    Grams (ties: the wider; phases 14(a) and 15), each timed on one of the path's own Grams of
     that shape: the kernel, the plain version (one call, no warm-up) and
     torch.linalg.eigh in turns by CUDA events, beside the bound."""
     import torch
@@ -2227,15 +2275,17 @@ def _tree_shapes_timed(tag, grams, hist):
     return timed
 
 
-def phase_tree_dmrg(card, gram_tol, m=TREE_M, profile=False):
+def phase_tree_dmrg(card, gram_tol, m=TREE_M, profile=False, tag="[tree a]",
+                    time_shapes=True):
     """Phase 14(a): tree DMRG of the bench chain (18 sites) on
     BasisTree.binary at M=m in fp32, through TTNO / TTNS.random /
     optimize_ttns: the sweeps' lowest energy within TREE_E_TOL of E_REF;
     every Gram of the truncation through the kernel (recorded, none at the
     sweep cap, each solved again by torch.linalg.eigh and, for a shape phase
     3 did not hold, by the plain version); the widest and the most frequent
-    Gram shape timed.  Prints each sweep's seconds and energy, the largest
-    2-site coefficient and the peak device memory."""
+    Gram shape timed (unless ``time_shapes`` is false: phase 15(d) runs it
+    again under ``tag``).  Prints each sweep's seconds and energy, the
+    largest 2-site coefficient and the peak device memory."""
     import numpy as np
     import torch
 
@@ -2245,7 +2295,6 @@ def phase_tree_dmrg(card, gram_tol, m=TREE_M, profile=False):
     from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree
     from renormalizer_tpu_torch.tn import gs as tree_gs
 
-    tag = "[tree a]"
     model = holstein_chain(6)
     tree = BasisTree.binary(model.basis)
     t0 = time.perf_counter()
@@ -2321,9 +2370,9 @@ def phase_tree_dmrg(card, gram_tol, m=TREE_M, profile=False):
           and max(ttns.bond_dims) <= m, f"{tag} bad result")
     check(abs(lowest - E_REF) < TREE_E_TOL,
           f"{tag} energy {lowest} not within {TREE_E_TOL} of {E_REF}")
-    timed = _tree_shapes_timed(tag, grams, hist)
+    timed = _tree_shapes_timed(tag, grams, hist) if time_shapes else {}
     return launches, dict(sweeps=sweep_times, energy_diff=lowest - E_REF,
-                          peak_gib=peak / 2**30, timed=timed)
+                          peak_gib=peak / 2**30, timed=timed, energies=energies)
 
 
 def phase_tree_pyrazine(card, nsteps=PYR_STEPS):
@@ -2479,6 +2528,430 @@ def phase_tree(card, gram_tol, profile=False):
                           oracles=oracles)
 
 
+@contextlib.contextmanager
+def _environ(**values):
+    """The port's knobs set for a block (they are read at call time), and
+    restored after it; RENO_HOST_OFFLOAD's cached read is cleared both
+    ways."""
+    from renormalizer_tpu_torch.mps import offload
+
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    offload.hot_window.cache_clear()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        offload.hot_window.cache_clear()
+
+
+@contextlib.contextmanager
+def _constants(**values):
+    """trunc_device's module constants set for a block, and restored after
+    it."""
+    from renormalizer_tpu_torch.mps import trunc_device
+
+    old = {k: getattr(trunc_device, k) for k in values}
+    for k, v in values.items():
+        setattr(trunc_device, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(trunc_device, k, v)
+
+
+def _merged(records):
+    """One GramRecord holding the Grams of several, so that a shape phase 3
+    did not hold is held by one plain call per padded size."""
+    out = GramRecord(keep_grams=True)
+    for rec in records:
+        out.grams += rec.grams
+        out.itemsizes += rec.itemsizes
+        for key, kept in rec.kept.items():
+            out.kept.setdefault(key, []).extend(kept)
+    return out
+
+
+def _hide_counters():
+    from renormalizer_tpu_torch.mps import trunc_device
+
+    stats = trunc_device.PLAN_STATS
+    return dict(static=stats["static"], stale=stats["stale"], sync=stats["sync"],
+                noarm=stats["noarm"], reads=trunc_device.SPECTRUM_READS,
+                hits=trunc_device.IDX_CACHE_STATS["hits"],
+                misses=trunc_device.IDX_CACHE_STATS["misses"],
+                retries=trunc_device.SKETCH_RETRIES)
+
+
+def _hide_dmrg(tag, card, mps, mpo, env, consts=None):
+    """The sweeps of ``mps.optimize_config.procedure`` under the environment
+    ``env`` and trunc_device's constants ``consts``, every one of them (as bench.py drives its steady state: the
+    sweep loop of optimize_mps without its early stop, so that a plan meets
+    its pattern again), every Gram recorded (kept for the plain version):
+    per sweep its seconds, the site updates and the selection paths they
+    took (PLAN_STATS), the host reads of a spectrum, the index cache's hits
+    and misses and the exact retries of a sketch; the sync reasons of the run; the
+    peak device memory."""
+    import torch
+
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.mps import gs, trunc_device
+    from renormalizer_tpu_torch.mps.mp import MatrixProduct
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
+
+    grams = GramRecord(keep_grams=True)
+    count = collections.Counter()
+    update = MatrixProduct._update_mps_device
+    sweeps, energies = [], []
+
+    def counted_update(self, *args, **kwargs):
+        static, reads = trunc_device.PLAN_STATS["static"], trunc_device.SPECTRUM_READS
+        count["updates"] += 1
+        out = update(self, *args, **kwargs)
+        if trunc_device.PLAN_STATS["static"] > static:
+            count["static_reads"] += trunc_device.SPECTRUM_READS - reads
+        return out
+
+    with _environ(**env), _constants(**(consts or {})):
+        trunc_device.reset_plan_stats()
+        trunc_device.jacobi_eigh = grams
+        MatrixProduct._update_mps_device = counted_update
+        torch.cuda.reset_peak_memory_stats()
+        # earlier runs' kept Grams stay allocated: the peak is read above it
+        base = torch.cuda.memory_allocated()
+        try:
+            jacobi_eigh.launches = 0
+            trunc_device.LINALG_EIGH_GRAMS = 0
+            backend.sync()
+            t0 = time.perf_counter()
+            mps.ensure_left_canonical()
+            environ = gs.Environ(mps, mpo, "L")
+            opt_e_idx = None
+            for config, percent in mps.optimize_config.procedure:
+                mps.compress_config = config if isinstance(config, CompressConfig) \
+                    else CompressConfig(CompressCriteria.fixed, max_bonddim=config)
+                before, updates = _hide_counters(), count["updates"]
+                backend.sync()
+                t1 = time.perf_counter()
+                micro, _ = gs.single_sweep(mps, mpo, environ, None, percent, opt_e_idx)
+                backend.sync()
+                seconds = time.perf_counter() - t1
+                after = _hide_counters()
+                sweeps.append(dict(seconds=seconds, percent=percent,
+                                   updates=count["updates"] - updates,
+                                   **{k: after[k] - before[k] for k in after}))
+                e, opt_e_idx = min(micro)
+                energies.append(e)
+            total = time.perf_counter() - t0
+            launches = jacobi_eigh.launches
+            elsewhere = trunc_device.LINALG_EIGH_GRAMS
+        finally:
+            trunc_device.jacobi_eigh = jacobi_eigh
+            MatrixProduct._update_mps_device = update
+        reasons = collections.Counter(
+            r for _, r in trunc_device.PLAN_STATS.get("sync_sites", []))
+    opt = mps
+    peak = torch.cuda.max_memory_allocated() - base
+    e_min = float(min(energies))
+    print(f"{tag} {env}: lowest {e_min:.10f} (diff {e_min - E_REF:+.3e}); "
+          f"{total:.2f} s; peak device memory {peak / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB allocated before the run; bond dims "
+          f"{opt.bond_dims}; jacobi launches {launches}; sync reasons "
+          f"{dict(reasons)}", flush=True)
+    for i, sw in enumerate(sweeps):
+        print(f"{tag}   sweep {i} (percent {sw['percent']}): {sw['seconds']:.4f} s "
+              f"({card}); {sw['updates']} updates: static {sw['static']} stale "
+              f"{sw['stale']} sync {sw['sync']} noarm {sw['noarm']}; spectrum "
+              f"reads {sw['reads']}; index cache hits {sw['hits']} misses "
+              f"{sw['misses']}; sketch retries {sw['retries']}", flush=True)
+    check(elsewhere == 0, f"{tag} {elsewhere} Gram eigh went around the kernel")
+    check(all(bool(torch.isfinite(t).all()) for t in opt), f"{tag} non-finite MPS")
+    totals = {k: sum(sw[k] for sw in sweeps) for k in sweeps[0] if k != "percent"}
+    return dict(energies=[float(e) for e in energies], e_min=e_min, sweeps=sweeps,
+                totals=totals, launches=launches, grams=grams, peak=peak,
+                static_reads=count["static_reads"],
+                opt=opt, reasons=dict(reasons))
+
+
+def phase_hide_async(card, gram_tol):
+    """Phase 15(a): phase 4's DMRG with the asynchronous static-plan
+    selection (RENO_ASYNC_TRUNC=1), synchronously (=0), then synchronously
+    and asynchronously again, so that the two modes are timed in alternated
+    order: each within E_TOL of E_REF; static updates in the percent-0
+    sweeps of the asynchronous runs, which read no spectrum (the reads
+    counted around each static update).  Launches by (batch, n) per run;
+    the Grams are held against the plain version with 15(c)'s."""
+    from renormalizer_tpu_torch import Mpo, Mps
+
+    tag = "[hide a]"
+    model = holstein_chain(6)
+    mpo = Mpo(model)
+    seed = Mps.random(model, 1, M, percent=1.0)
+    runs = {}
+    for name, flag in (("async", 1), ("sync", 0), ("sync2", 0), ("async2", 1)):
+        mps = seed.copy()
+        mps.optimize_config.procedure = PROCEDURE
+        mps.optimize_config.method = "2site"
+        run = _hide_dmrg(f"{tag} {name}", card, mps, mpo, dict(RENO_ASYNC_TRUNC=flag))
+        run["hist"] = run["grams"].report(f"{tag} {name}", run["launches"])
+        runs[name] = run
+        check(abs(run["e_min"] - E_REF) < E_TOL,
+              f"{tag} {name}: energy {run['e_min']} not within {E_TOL} of {E_REF}")
+        tot = run["totals"]
+        if not flag:
+            check(tot["static"] == tot["stale"] == tot["sync"] == 0,
+                  f"{tag} {name} run took the plan paths: {tot}")
+            continue
+        static0 = sum(sw["static"] for sw in run["sweeps"] if sw["percent"] == 0)
+        check(static0 > 0, f"{tag} {name}: no static update in the percent-0 sweeps")
+        check(run["static_reads"] == 0,
+              f"{tag} {name}: static updates read {run['static_reads']} spectra")
+    for name, run in runs.items():
+        tot = run["totals"]
+        print(f"{tag} {name}: sweep seconds {[round(sw['seconds'], 4) for sw in run['sweeps']]}"
+              f"; static share {tot['static'] / tot['updates']:.3f} of "
+              f"{tot['updates']} updates; spectrum reads {tot['reads']}", flush=True)
+    return runs
+
+
+def phase_hide_sketch(card, gram_tol, start):
+    """Phase 15(b): threshold-criteria DMRG from ``start`` (15(a)'s
+    converged M=256 state) with CompressCriteria.both at SKETCH_THRESHOLD
+    and max_bonddim M, SKETCH_SWEEPS percent-0 sweeps: exact (the default
+    caps: full-rank candidates, up to rank 1536), sketched (exact cap
+    SKETCH_EXACT_CAP: the phonon-phonon updates sketch SKETCH_GRAM states,
+    normalized by frob_norm) and starved (sketch cap 1: the saturation check
+    must send updates back to exact candidates on the device).  Gates: each
+    within E_TOL of E_REF, the three lowest energies within SKETCH_RTOL of
+    each other, frob_norm ran in the sketched run, the (batch, SKETCH_GRAM)
+    Grams were launched, retries in the starved run; every shape held
+    against the plain version."""
+    from renormalizer_tpu_torch import Mpo
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
+
+    tag = "[hide b]"
+    mpo = Mpo(holstein_chain(6))
+    frob = trunc_device.frob_norm
+    calls = collections.Counter()
+
+    def counted_frob(arr):
+        calls["frob"] += 1
+        return frob(arr)
+
+    runs = {}
+    trunc_device.frob_norm = counted_frob
+    try:
+        for name, consts in (
+                ("exact", {}),
+                ("sketched", dict(EXACT_CAP=SKETCH_EXACT_CAP)),
+                ("starved", dict(EXACT_CAP=SKETCH_EXACT_CAP, SKETCH_CAP=1))):
+            calls.clear()
+            mps = start.copy()
+            mps.optimize_config.procedure = [
+                [CompressConfig(CompressCriteria.both, threshold=SKETCH_THRESHOLD,
+                                max_bonddim=M), 0] for _ in range(SKETCH_SWEEPS)]
+            mps.optimize_config.method = "2site"
+            run = _hide_dmrg(f"{tag} {name}", card, mps, mpo, {}, consts)
+            run["frob"] = calls["frob"]
+            run["hist"] = run["grams"].report(f"{tag} {name}", run["launches"])
+            runs[name] = run
+            print(f"{tag} {name}: frob_norm calls {run['frob']}, sketch retries "
+                  f"{run['totals']['retries']}", flush=True)
+            check(abs(run["e_min"] - E_REF) < E_TOL,
+                  f"{tag} {name}: energy {run['e_min']} not within {E_TOL} of {E_REF}")
+    finally:
+        trunc_device.frob_norm = frob
+    check(runs["exact"]["frob"] == 0 and runs["exact"]["totals"]["retries"] == 0,
+          f"{tag} the exact run sketched")
+    check(runs["sketched"]["frob"] > 0, f"{tag} frob_norm never ran in the sketched run")
+    check(any(n == SKETCH_GRAM for _, n in runs["sketched"]["hist"]),
+          f"{tag} the sketched run launched no (batch, {SKETCH_GRAM}) Gram")
+    check(runs["starved"]["totals"]["retries"] > 0, f"{tag} no exact retry")
+    e_exact = runs["exact"]["e_min"]
+    for name in ("sketched", "starved"):
+        rel = abs(runs[name]["e_min"] - e_exact) / abs(e_exact)
+        print(f"{tag} {name}: lowest energy off the exact run's by {rel:.3e} "
+              f"(relative)", flush=True)
+        check(rel < SKETCH_RTOL, f"{tag} {name} energy {runs[name]['e_min']} vs {e_exact}")
+    _hold_unheld(tag, _merged([r["grams"] for r in runs.values()]), phase3_held(),
+                 gram_tol)
+    timed = _tree_shapes_timed(f"{tag} sketched", runs["sketched"]["grams"],
+                               runs["sketched"]["hist"])
+    return runs, timed
+
+
+def phase_hide_offload(card, sync_run):
+    """Phase 15(c): 15(a)'s synchronous run with RENO_HOST_OFFLOAD=2 and
+    every site tensor offloadable (dump_matrix_size = 1 in each procedure
+    entry): environments evicted and restored, cold environments and sites
+    seen in pinned host memory, the energies those of 15(a)'s synchronous
+    run to OFFLOAD_RTOL."""
+    import numpy as np
+
+    from renormalizer_tpu_torch import Mpo, Mps
+    from renormalizer_tpu_torch.mps import gs, offload
+    from renormalizer_tpu_torch.mps.mp import MatrixProduct
+    from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
+
+    tag = "[hide c]"
+    model = holstein_chain(6)
+    mpo = Mpo(model)
+    mps = Mps.random(model, 1, M, percent=1.0)
+    mps.optimize_config.procedure = [
+        [CompressConfig(CompressCriteria.fixed, max_bonddim=m, dump_matrix_size=1), p]
+        for m, p in PROCEDURE]
+    mps.optimize_config.method = "2site"
+    mps.compress_config.dump_matrix_size = 1
+    seen = collections.Counter()
+    stores = []
+    environ_cls = gs.Environ
+    offload_sites = MatrixProduct._offload_cold_sites
+    evict = offload.TieredStore._evict
+
+    class RecordedEnviron(environ_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            stores.append(self._store)
+
+    def recorded_offload(self, center):
+        offload_sites(self, center)
+        seen["cold sites"] += len(self._cold_sites)
+        seen["pinned sites"] += sum(self._mp[i].device.type == "cpu" and self._mp[i].is_pinned()
+                                    for i in self._cold_sites)
+
+    def recorded_evict(self):
+        evict(self)
+        seen["cold environments"] += len(self._cold)
+        seen["pinned environments"] += sum(
+            self._data[k].device.type == "cpu" and self._data[k].is_pinned()
+            for k in self._cold)
+
+    gs.Environ = RecordedEnviron
+    MatrixProduct._offload_cold_sites = recorded_offload
+    offload.TieredStore._evict = recorded_evict
+    try:
+        run = _hide_dmrg(tag, card, mps, mpo,
+                         dict(RENO_ASYNC_TRUNC=0, RENO_HOST_OFFLOAD=2))
+    finally:
+        gs.Environ = environ_cls
+        MatrixProduct._offload_cold_sites = offload_sites
+        offload.TieredStore._evict = evict
+    evicted = sum(s.n_evicted for s in stores)
+    restored = sum(s.n_restored for s in stores)
+    run["hist"] = run["grams"].report(tag, run["launches"])
+    e, e_ref = np.array(run["energies"]), np.array(sync_run["energies"])
+    rel = float(np.abs(e - e_ref).max() / np.abs(e_ref).max()) if len(e) == len(e_ref) \
+        else float("inf")
+    print(f"{tag} environments evicted {evicted} restored {restored}; "
+          f"{dict(seen)}; energies off 15(a)'s synchronous run by {rel:.3e} "
+          f"(relative); peak device memory {run['peak'] / 2**30:.3f} GiB against "
+          f"{sync_run['peak'] / 2**30:.3f} GiB untiered ({card})", flush=True)
+    check(len(stores) > 0 and all(isinstance(s, offload.TieredStore) for s in stores),
+          f"{tag} the environments were not tiered")
+    check(evicted > 0 and restored > 0, f"{tag} evicted {evicted} restored {restored}")
+    check(seen["pinned environments"] > 0 and seen["pinned sites"] > 0,
+          f"{tag} no cold tensor seen in pinned host memory: {dict(seen)}")
+    check(rel < OFFLOAD_RTOL, f"{tag} energies {run['energies']} vs {sync_run['energies']}")
+    return run, dict(evicted=evicted, restored=restored, **seen)
+
+
+def phase_hide_tree(card, gram_tol):
+    """Phase 15(d): phase 14(a) synchronously and with the plan reuse
+    (RENO_ASYNC_TRUNC=0 and 1): both within TREE_E_TOL of E_REF (14(a)'s own
+    gate) and the previous visit's spectrum reused in the asynchronous
+    run."""
+    from renormalizer_tpu_torch.mps import trunc_device
+
+    out = {}
+    for flag in (0, 1):
+        with _environ(RENO_ASYNC_TRUNC=flag):
+            trunc_device.reset_plan_stats()
+            launches, run = phase_tree_dmrg(card, gram_tol, tag=f"[hide d] async={flag}",
+                                            time_shapes=False)
+            stats = dict(trunc_device.PLAN_STATS)
+        print(f"[hide d] async={flag}: plan reuse {stats['tree_stale']}, current "
+              f"spectrum {stats['tree_sync']}", flush=True)
+        out[flag] = dict(run, launches=launches, reuse=stats["tree_stale"])
+    check(out[0]["reuse"] == 0, "[hide d] the synchronous run reused a plan")
+    check(out[1]["reuse"] > 0, "[hide d] the asynchronous run never reused a plan")
+    return out
+
+
+def phase_hide_profile(card):
+    """Phase 15(e): two percent-0 sweeps (the fewest that optimize_mps
+    returns a state from) of a 2-molecule chain at M=8 under RENO_PROFILE:
+    optimize_mps's maybe_profile must write a trace.  The chain is small
+    because the trace holds every operator: two sweeps of the bench chain
+    at M=16 wrote 256 MB in a CPU rehearsal."""
+    import tempfile
+
+    from renormalizer_tpu_torch import HolsteinModel, Mpo, Mps, Quantity, optimize_mps
+
+    chain = holstein_chain(4)
+    model = HolsteinModel(chain.mol_list[:2], Quantity(-0.1, "eV"))
+    mps = Mps.random(model, 1, 8, percent=1.0)
+    mps.optimize_config.procedure = [[8, 0]] * 2
+    with tempfile.TemporaryDirectory() as tmp:
+        with _environ(RENO_PROFILE=tmp):
+            t0 = time.perf_counter()
+            optimize_mps(mps, Mpo(model))
+            seconds = time.perf_counter() - t0
+        path = os.path.join(tmp, "dmrg", "trace.json")
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+    print(f"[hide e] two sweeps under RENO_PROFILE {seconds:.2f} s ({card}); "
+          f"trace {size} bytes", flush=True)
+    check(size > 0, "[hide e] no trace written")
+    return size
+
+
+def phase_hide(card, gram_tol):
+    """Phase 15: the site update's host-hiding machinery and the tiering on
+    the bench chain at full width, (a)-(e)."""
+    runs_a = phase_hide_async(card, gram_tol)
+    runs_b, timed_b = phase_hide_sketch(card, gram_tol, runs_a["sync"]["opt"])
+    run_c, tiers = phase_hide_offload(card, runs_a["sync"])
+    _hold_unheld("[hide a, c]", _merged([r["grams"] for r in (*runs_a.values(), run_c)]),
+                 phase3_held(), gram_tol)
+    tree = phase_hide_tree(card, gram_tol)
+    trace_bytes = phase_hide_profile(card)
+    launches = {"async_dmrg": runs_a["async"]["launches"],
+                "sync_dmrg": runs_a["sync"]["launches"],
+                "sketch_threshold_dmrg": runs_b["sketched"]["launches"],
+                "offload_dmrg": run_c["launches"],
+                "tree_dmrg_async": tree[1]["launches"]}
+    summary = {
+        "sweep_seconds": {name: [round(sw["seconds"], 4) for sw in run["sweeps"]]
+                          for name, run in runs_a.items()},
+        "static_share": {name: round(run["totals"]["static"] / run["totals"]["updates"], 3)
+                         for name, run in runs_a.items()},
+        "spectrum_reads": {name: run["totals"]["reads"] for name, run in runs_a.items()},
+        "index_cache": {name: [run["totals"]["hits"], run["totals"]["misses"]]
+                        for name, run in runs_a.items()},
+        "sketch_energy_diffs": {name: f"{run['e_min'] - E_REF:+.3e}"
+                                for name, run in runs_b.items()},
+        "sketch_retries": {name: run["totals"]["retries"] for name, run in runs_b.items()},
+        "offload": dict(tiers, peak_gib=round(run_c["peak"] / 2**30, 3),
+                        untiered_peak_gib=round(runs_a["sync"]["peak"] / 2**30, 3),
+                        sweep_seconds=[round(sw["seconds"], 4) for sw in run_c["sweeps"]]),
+        "tree_sweep_seconds": {f"async={k}": [round(t, 4) for t in v["sweeps"]]
+                               for k, v in tree.items()},
+        "tree_plan_reuse": tree[1]["reuse"],
+        "trace_bytes": trace_bytes,
+        "gram_ms": {f"sketched {k}": {n: round(v[n], 3) for n in
+                                    ("kernel", "plain", "torch.linalg.eigh")}
+                    | {"launches": v["launches"]}
+                    for k, v in timed_b.items()},
+    }
+    return launches, summary
+
+
 def phase_profile_step(card, tag, step):
     """Phase 7: one more evolution step (``step()``) under torch.profiler."""
     import torch
@@ -2586,6 +3059,16 @@ def main():
         print(f"[tree] phases 1, 2 and 14 passed in "
               f"{time.perf_counter() - _T0:.1f} s", flush=True)
         return
+    if "--hide" in sys.argv[1:]:
+        # phases 1, 2, 4 and 15 alone; no kernel record and no result line
+        _, card = phase_environment()
+        phase_build()
+        phase_main_path(card)
+        hide_launches, hide_s = phase_hide(card, TOL_F32)
+        print("[hide] " + json.dumps(dict(hide_s, launches=hide_launches)), flush=True)
+        print(f"[hide] phases 1, 2, 4 and 15 passed in "
+              f"{time.perf_counter() - _T0:.1f} s", flush=True)
+        return
     phase_s = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -2618,6 +3101,7 @@ def main():
     excited_launches, excited_s = timed("12", phase_excited_jobs, card, record["tol_f32"])
     qc_launches, qc_s = timed("13", phase_qc, card, record["tol_f32"])
     tree_launches, tree_s = timed("14", phase_tree, card, record["tol_f32"], profile)
+    hide_launches, hide_s = timed("15", phase_hide, card, record["tol_f32"])
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -2651,6 +3135,7 @@ def main():
                                   round(max(tree_s["pyrazine_steps"]), 4)],
         "pyrazine_max_deviation": f"{tree_s['pyrazine_dev']:.3e}",
         "tree_oracles": {k: f"{v:.3e}" for k, v in tree_s["oracles"].items()},
+        "host_hiding": hide_s,
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
@@ -2661,7 +3146,7 @@ def main():
     by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
                "transport_kubo": kubo_launches, **vmf_launches, **excited_launches,
                "qc": qc_launches["fp64"] + qc_launches["fp32"],
-               "tree_dmrg": tree_launches}
+               "tree_dmrg": tree_launches, **hide_launches}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
           f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
           f"constructor {kubo_launches}, ChargeDiffusionDynamics (b)-(c) "
@@ -2670,7 +3155,7 @@ def main():
           f"{excited_launches['state_averaged_dmrg']}, SpectraZtCV (12b) "
           f"{excited_launches['cv_zerot']}, H2O QC-DMRG (13a fp64 + 13b fp32) "
           f"{qc_launches['fp64']} + {qc_launches['fp32']}, tree DMRG (14a) "
-          f"{tree_launches}", flush=True)
+          f"{tree_launches}, phase 15 {hide_launches}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,

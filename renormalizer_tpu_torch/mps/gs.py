@@ -9,7 +9,8 @@ root: ``davidson_fused``; several: ``davidson_multiroot``), scipy's ``eigsh`` ov
 (``algo="arpack"``) or LOBPCG on ``sigma - H`` (``"lobpcg"``, and
 ``"primme"``, which the JAX package also routes there).  ``omega`` targets
 the eigenstate nearest to it by optimizing (H - omega)^2 with two-layer
-environments.  Several roots truncate the averaged density matrix
+environments; with ``RENO_PROFILE=dir`` the sweeps run under
+``torch.profiler`` (``utils/profiling.py``).  Several roots truncate the averaged density matrix
 (``Mps._update_mps`` with a list).  A :class:`StackedMpo` keeps one
 ``Environ`` per term and sums the terms' hops (and dense matrices) in the
 eigensolver.  With ``compress_config.ofs`` each update may swap its two DoFs
@@ -46,6 +47,7 @@ from renormalizer_tpu_torch.mps.lib import Environ, cvec2cmat
 from renormalizer_tpu_torch.mps.mpo import Mpo, StackedMpo
 from renormalizer_tpu_torch.mps.mps import Mps
 from renormalizer_tpu_torch.mps.svd_qn import get_qn_mask
+from renormalizer_tpu_torch.mps.trunc_device import _device_idx
 from renormalizer_tpu_torch.ops.contract import (
     hop_dense,
     hop_diag,
@@ -54,6 +56,7 @@ from renormalizer_tpu_torch.ops.contract import (
     tensordot1,
 )
 from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria, Quantity
+from renormalizer_tpu_torch.utils.profiling import maybe_profile
 
 logger = logging.getLogger(__name__)
 
@@ -93,6 +96,21 @@ def optimize_mps(mps: Mps, mpo: Mpo, omega: float = None) -> Tuple[List, Mps]:
     else:
         environ = Environ(mps, mpo, env)
 
+    with maybe_profile("dmrg"):
+        macro_iteration_result, res_mps = _sweeps(mps, mpo, environ, omega)
+
+    assert res_mps is not None
+    roots = res_mps if isinstance(res_mps, list) else [res_mps]
+    roots = [mp.normalize("mps_only").ensure_left_canonical().canonicalise()
+             for mp in roots]
+    for mp in roots:
+        mp.compress_config = compress_config_bk
+    return macro_iteration_result, (roots if isinstance(res_mps, list) else roots[0])
+
+
+def _sweeps(mps, mpo, environ, omega):
+    """The procedure's sweeps until two percent-0 sweeps agree; returns the
+    lowest energy of each sweep and the state (states) of the last."""
     macro_iteration_result = []
     opt_e_idx = None
     res_mps = None
@@ -128,14 +146,7 @@ def optimize_mps(mps: Mps, mpo: Mpo, omega: float = None) -> Tuple[List, Mps]:
     else:
         logger.warning("DMRG did not converge! Please increase the procedure!")
         logger.info(f"Lowest two energies: {sorted(macro_iteration_result)[:2]}.")
-
-    assert res_mps is not None
-    roots = res_mps if isinstance(res_mps, list) else [res_mps]
-    roots = [mp.normalize("mps_only").ensure_left_canonical().canonicalise()
-             for mp in roots]
-    for mp in roots:
-        mp.compress_config = compress_config_bk
-    return macro_iteration_result, (roots if isinstance(res_mps, list) else roots[0])
+    return macro_iteration_result, res_mps
 
 
 def single_sweep(mps: Mps, mpo, environ, omega, percent, last_opt_e_idx):
@@ -250,8 +261,15 @@ def sign_fix(c, nroots: int = 1):
     return c / torch.sign(c.reshape(-1)[torch.argmax(torch.abs(c))])
 
 
+def device_mask(qn_mask: np.ndarray) -> torch.Tensor:
+    """Device copy of a flat boolean qn mask, cached by content
+    (``trunc_device._device_idx``): at steady state the same masks recur
+    every sweep, and each upload is a host-to-device copy."""
+    return _device_idx(np.asarray(qn_mask).ravel())
+
+
 def _mask_index(qn_mask) -> torch.Tensor:
-    return torch.as_tensor(np.nonzero(qn_mask.ravel())[0], device=backend.device)
+    return _device_idx(np.nonzero(np.asarray(qn_mask).ravel())[0])
 
 
 def _stacked(ltensor) -> bool:
@@ -294,7 +312,7 @@ def eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess):
     algo = mps.optimize_config.algo
     twolayer = omega is not None
     cshape = qn_mask.shape
-    mask = torch.as_tensor(qn_mask.ravel(), device=backend.device)
+    mask = device_mask(qn_mask)
     terms = _terms(ltensor, rtensor, cmo)
     exprs = [hop_expr(lt, rt, cm, cshape, twolayer) for lt, rt, cm in terms]
     expr = exprs[0] if len(exprs) == 1 else (lambda c: sum(e(c) for e in exprs))

@@ -1,7 +1,7 @@
 r"""MPS sweep machinery: environments and renormalized-basis selection.
 
 Port of ``renormalizer_tpu/mps/lib.py``.  Environments are a dict of device
-tensors.  Basis selection works on host copies of the singular values (a
+tensors (an ``offload.TieredStore`` with RENO_HOST_OFFLOAD).  Basis selection works on host copies of the singular values (a
 few KB) and returns index lists for device gathers.  The JAX package rounds
 per-sector kept counts to multiples of 8 on accelerators to bound XLA
 recompiles; PyTorch compiles nothing per shape, so the port keeps the
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from renormalizer_tpu_torch.backend import backend
+from renormalizer_tpu_torch.mps import offload
 from renormalizer_tpu_torch.ops.contract import (
     contract_one_site,
     contract_one_site_multi_mpo,
@@ -38,7 +39,10 @@ class Environ:
     """
 
     def __init__(self, mps, mpo, domain=None, mps_conj=None):
-        self._store = {}
+        hot = offload.hot_window()
+        # RENO_HOST_OFFLOAD=N: the N most recently used entries stay on the
+        # device, the rest move to host memory with transparent restore
+        self._store = offload.TieredStore(hot) if hot else {}
         # the boundary carries the dtype of the contraction, so no
         # environment is promoted again when it meets a complex state
         mpos = mpo if isinstance(mpo, list) else [mpo]
@@ -99,7 +103,12 @@ class Environ:
         self._store[(domain, siteidx)] = tensor
 
     def read(self, domain, siteidx):
-        return self._store[(domain, siteidx)]
+        tensor = self._store[(domain, siteidx)]
+        if not isinstance(self._store, dict):
+            # warm the neighbours the sweep touches next
+            for nxt in (siteidx - 1, siteidx + 1):
+                self._store.prefetch((domain, nxt))
+        return tensor
 
 
 def select_indices(sset, qnlist, Mmax, percent=0) -> List[int]:

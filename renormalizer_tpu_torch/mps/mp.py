@@ -7,8 +7,12 @@ sweep direction ``to_right``) is host numpy since it only determines shapes
 and masks.  Sweep decompositions run on the device
 (``trunc_device.py``): a blockwise QR to move the canonical center and the
 randomized sector-pure truncation in DMRG site updates, with the retained
-basis selected on the host from the candidate spectrum of the current
-update (one small fetch per update).
+basis selected on the host from the candidate spectrum.  On the card the
+fixed-M, percent-0 updates select by the asynchronous static plan (no
+spectrum read at steady state); a sketched threshold spectrum that fails
+its saturation check is computed again exactly, on the device.  With
+RENO_HOST_OFFLOAD site tensors far from the sweep center live in host
+memory (``offload.py``).
 """
 
 import hashlib
@@ -20,7 +24,7 @@ import torch
 
 from renormalizer_tpu_torch.backend import backend, np_dtype
 from renormalizer_tpu_torch.model import HolsteinModel, Model
-from renormalizer_tpu_torch.mps import svd_qn, trunc_device
+from renormalizer_tpu_torch.mps import offload, svd_qn, trunc_device
 from renormalizer_tpu_torch.mps.lib import Environ, select_basis, select_indices
 from renormalizer_tpu_torch.mps.trunc_device import _double
 from renormalizer_tpu_torch.mps.svd_qn import add_outer, get_qn_mask
@@ -70,6 +74,12 @@ class MatrixProduct:
         self._mp: List = []
         # content digests of host-built site tensors (see ``_content_digest``)
         self._mt_hashes: List = []
+        # indices of site tensors offloaded to host memory (RENO_HOST_OFFLOAD)
+        self._cold_sites: set = set()
+        # asynchronous selection plans: (cidx, direction) -> (qn pattern,
+        # PendingSpectrum of the previous visit, frozen per-sector counts,
+        # slot layout, static visits since the last revalidation)
+        self._trunc_plans: dict = {}
         self.dtype = backend.real_dtype
         self.model: Model = None
         self.compress_config: CompressConfig = CompressConfig()
@@ -344,6 +354,7 @@ class MatrixProduct:
             if qnrset is not None:
                 self.qn[idx] = np.array(qnrset[:m_trunc])
                 self.qnidx = idx - 1
+        self._offload_cold_sites(self.qnidx)
 
     def _push_cano(self, idx):
         """Move the canonical center across site ``idx`` by blockwise QR
@@ -555,34 +566,190 @@ class MatrixProduct:
         return self._write_back(cidx, ms, msqn, rotated[0], rotated)
 
     def _update_mps_device(self, cstruct, cidx, qnbigl, qnbigr, system, percent):
-        """Randomized sector-pure candidates on the device, selection on the
-        host from the current update's candidate spectrum (one small
-        synchronous fetch), then the device gather and rotation."""
+        """Randomized sector-pure candidates on the device, the selection on
+        the host from their spectrum, then the device gather and rotation.
+
+        Fixed-M updates at percent 0 with :func:`trunc_device.async_enabled`
+        select without waiting for the current spectrum (the JAX package's
+        ``mp.py:643-872``): a plan per ``(cidx, direction)`` holds the
+        quantum-number pattern of the previous visit, its spectrum (copied to
+        the host meanwhile) and, once armed, the per-sector keep counts.  With
+        the pattern and slot layout unchanged the update keeps the first k_i
+        slots of each sector and reads no spectrum (static); every
+        ``trunc_device.STATIC_REVALIDATE`` static visits (staggered per plan) it
+        selects from the previous visit's spectrum (stale); on a miss it
+        reads the current one (sync, reason in ``PLAN_STATS["sync_sites"]``).
+        Threshold criteria take exact candidates up to
+        ``trunc_device.EXACT_CAP`` and a sketch of ``trunc_device.SKETCH_CAP``
+        above it, normalized by the exact ||C||_F; a sketch whose saturation
+        check fails is replaced by exact candidates (counted in
+        ``trunc_device.SKETCH_RETRIES``)."""
         m = int(np.prod(qnbigl.shape[:-1]))
         n = int(np.prod(qnbigr.shape[:-1]))
         bond_idx = cidx[0] if self.to_right else cidx[-1]
-        if self.compress_config.criteria is CompressCriteria.fixed:
+        fixed = self.compress_config.criteria is CompressCriteria.fixed
+        sketched = False
+        if fixed:
             cap = self.compress_config.compute_m_trunc(
                 np.full(min(m, n), np.inf), bond_idx, self.to_right)
         else:
             # threshold criteria read the spectrum down to the cut: exact
-            # (full-rank) candidates
+            # candidates while cheap, a sketch checked for saturation above
             cap = min(m, n)
-        parts, sigma, qn_list = trunc_device.candidates(
+            if cap > trunc_device.EXACT_CAP:
+                cap = trunc_device.SKETCH_CAP
+                sketched = True
+        use_async = fixed and percent == 0 and trunc_device.async_enabled()
+        plan_key = (tuple(cidx), bool(self.to_right))
+        pattern = (trunc_device.plan_pattern(qnbigl, qnbigr, self.qntot, cap, system)
+                   if use_async else None)
+        parts, lam, qn_list, layout = trunc_device.candidates(
             cstruct, qnbigl, qnbigr, self.qntot, system, cap,
-            want_complement=(percent != 0))
+            want_complement=(percent != 0), fetch=not use_async,
+            return_layout=True)
+        plan = None
+        counts = None
+        if use_async:
+            sigma, counts, plan = self._plan_selection(plan_key, pattern, lam,
+                                                       layout)
+        else:
+            sigma = lam
+        if counts is not None:
+            # static path: the first k_i slots of each sector
+            l1p = layout[1]
+            sidx = np.concatenate([np.arange(k, dtype=np.int64) + i * l1p
+                                   for i, k in enumerate(counts) if k])
+            return self._apply_selection(cstruct, parts, sidx, qn_list, m, n,
+                                         qnbigl, qnbigr, system, lam, cidx)
+        total_norm = None
+        if sketched:
+            # the exact ||C||_F, so the threshold normalizes against the
+            # whole spectrum, not its sketched top
+            total_norm = trunc_device.frob_norm(cstruct)
+            thr_abs = self.compress_config.threshold * total_norm
+            sat = trunc_device.OVERSAMPLE + cap
+            by_qn = {}
+            for q, s in zip(qn_list, sigma):
+                if s >= 0:
+                    cnt, smin = by_qn.get(q, (0, np.inf))
+                    by_qn[q] = (cnt + 1, min(smin, s))
+            if any(cnt >= sat and smin > thr_abs for cnt, smin in by_qn.values()):
+                # a saturated sector never reached the cut: the sketch may
+                # have missed kept states, so take exact candidates
+                trunc_device.SKETCH_RETRIES += 1
+                total_norm = None
+                parts, sigma, qn_list = trunc_device.candidates(
+                    cstruct, qnbigl, qnbigr, self.qntot, system, min(m, n),
+                    want_complement=(percent != 0))
         # sentinel slots (sigma = -1) count toward neither the bond
         # dimension target nor the selection
         m_trunc = self.compress_config.compute_m_trunc(
-            sigma[sigma >= 0], bond_idx, self.to_right)
-        # canonical slot order: sector-major, lambda-descending per sector
+            sigma[sigma >= 0], bond_idx, self.to_right, total_norm=total_norm)
+        # canonical slot order (sector-major, lambda-descending per sector):
+        # the static path emits this order, and the new bond's qn order
+        # feeds the neighbour's pattern; ordered differently, every static
+        # visit would flip the neighbour back to a sync visit
         sidx = sorted(select_indices(sigma, qn_list, m_trunc, percent))
+        if (use_async and plan is not None and plan[2] is not None
+                and plan[3] == layout):
+            sidx = self._hysteresis(sidx, sigma, plan[2], layout)
+        if use_async and layout is not None:
+            self._arm_plan(plan_key, sidx, layout)
+        return self._apply_selection(cstruct, parts, sidx, qn_list, m, n,
+                                     qnbigl, qnbigr, system, sigma, cidx)
+
+    def _plan_selection(self, plan_key, pattern, lam, layout):
+        """The asynchronous update's choice of spectrum: returns (sigma or
+        None, frozen counts or None, the previous plan) and stores this
+        visit's plan (the new spectrum's copy is already under way)."""
+        stats = trunc_device.PLAN_STATS
+        plan = self._trunc_plans.get(plan_key)
+        nvisit = plan[4] if plan is not None else 0
+        revalidate = trunc_device.STATIC_REVALIDATE
+        if revalidate:
+            # stagger the revalidations: every plan arms in the same sweep,
+            # so with one interval all would re-read in the same sweep
+            revalidate += int.from_bytes(pattern[:2], "little") % revalidate
+        sigma = counts = None
+        if (plan is not None and plan[0] == pattern and plan[2] is not None
+                and plan[3] == layout
+                and not (revalidate and nvisit + 1 >= revalidate)):
+            counts = plan[2]
+            nvisit += 1
+            stats["static"] += 1
+        elif plan is not None and plan[0] == pattern:
+            # the previous visit's spectrum, read on the host by now; also
+            # the periodic revalidation of a static plan
+            sigma = plan[1].sigma()
+            nvisit = 0
+            stats["stale"] += 1
+        else:
+            sigma = lam.sigma()
+            nvisit = 0
+            stats["sync"] += 1
+            stats.setdefault("sync_sites", []).append(
+                (plan_key,
+                 "no-plan" if plan is None
+                 else "pattern" if plan[0] != pattern
+                 else "layout" if plan[3] != layout
+                 else "unarmed"))
+        self._trunc_plans[plan_key] = (pattern, lam, counts, layout, nvisit)
+        return sigma, counts, plan
+
+    @staticmethod
+    def _hysteresis(sidx, sigma, counts, layout):
+        """Keep the plan's frozen counts unless the fresh selection keeps
+        materially more weight (relative gain above
+        ``trunc_device.HYSTERESIS_RTOL``).  Tied splits would otherwise
+        flip between visits.  The comparison is of kept weight, not of which
+        slots were kept, and is gated by the layout, not by the pattern: a
+        flip at one site changes the patterns downstream."""
+        l1p = layout[1]
+        old = sorted(i * l1p + k for i, cnt in enumerate(counts)
+                     for k in range(cnt))
+        if old == sidx or len(old) != len(sidx) or np.any(sigma[old] < 0):
+            return sidx
+        w = np.square(np.asarray(sigma, dtype=float))
+        w_old = w[old].sum()
+        gain = w[sidx].sum() - w_old
+        if gain <= trunc_device.HYSTERESIS_RTOL * max(w_old, np.finfo(float).tiny):
+            return old
+        return sidx
+
+    def _arm_plan(self, plan_key, sidx, layout):
+        """Arm the static path for the next visit when the selection is the
+        top k_i of each sector (no sentinel slot inside the kept range)."""
+        l1p = layout[1]
+        counts = [0] * layout[0]
+        for i in sidx:
+            counts[i // l1p] += 1
+        if len(sidx) and all(i % l1p < counts[i // l1p] for i in sidx):
+            plan = self._trunc_plans.get(plan_key)
+            if plan is not None:
+                self._trunc_plans[plan_key] = (plan[0], plan[1], tuple(counts),
+                                               layout, plan[4])
+        else:
+            trunc_device.PLAN_STATS["noarm"] += 1
+
+    def _apply_selection(self, cstruct, parts, sidx, qn_list, m, n, qnbigl,
+                         qnbigr, system, sigma, cidx):
+        """Gather the selected candidates and rotate the complement on the
+        device; with ``trunc_device.VERIFY_LEVEL`` check the kept basis (a static
+        update reads its current spectrum for that)."""
         msqn = np.array([qn_list[i] for i in sidx])
         ms, compms = trunc_device.apply_selection(
             cstruct, parts, sidx, m, n, system,
-            lshape=qnbigl.shape[:-1], rshape=qnbigr.shape[:-1],
-        )
-        return ms, len(sidx), msqn, compms
+            lshape=qnbigl.shape[:-1], rshape=qnbigr.shape[:-1])
+        msdim = len(sidx)
+        if trunc_device.VERIFY_LEVEL:
+            if isinstance(sigma, trunc_device.PendingSpectrum):
+                sigma = sigma.sigma()
+            ms_mat = (ms.reshape(m, msdim) if self.to_right
+                      else torch.movedim(ms, 0, -1).reshape(n, msdim))
+            trunc_device.verify_update(
+                ms_mat, cstruct, sigma, sidx, m, n,
+                label=f"cidx={cidx} to_right={self.to_right}")
+        return ms, msdim, msqn, compms
 
     def _write_back(self, cidx, ms, msqn, compms, rotated=None):
         """Write the factors back into the chain.  With ``rotated`` (the
@@ -626,6 +793,7 @@ class MatrixProduct:
             if rotated is not None:
                 averaged = rotated
             self.qn[cidx[1]] = msqn
+        self._offload_cold_sites(self.qnidx)
         return averaged
 
     @staticmethod
@@ -832,6 +1000,8 @@ class MatrixProduct:
         new.qntot = None if self.qntot is None else np.asarray(self.qntot).copy()
         new.to_right = self.to_right
         new._mt_hashes = [None] * len(self)
+        new._cold_sites = set()
+        new._trunc_plans = {}
         return new
 
     def build_empty_mp(self, num):
@@ -856,7 +1026,32 @@ class MatrixProduct:
     def __getitem__(self, item):
         if isinstance(item, slice):
             return [self[i] for i in range(*item.indices(len(self._mp)))]
+        if self._cold_sites:
+            idx = item if item >= 0 else item + len(self._mp)
+            if idx in self._cold_sites:
+                self._mp[idx] = offload.to_device(self._mp[idx])
+                self._cold_sites.discard(idx)
         return self._mp[item]
+
+    def _offload_cold_sites(self, center: int):
+        """Move the site tensors farther than ``offload.hot_window()`` sites
+        from the sweep center to host memory (RENO_HOST_OFFLOAD; the
+        reference offloads to disk, ``mp.py:1047-1080``).  Only tensors of at
+        least ``compress_config.dump_matrix_size`` bytes move (4 MiB when
+        that knob is left at inf); :meth:`__getitem__` and :meth:`__iter__`
+        bring them back."""
+        window = offload.hot_window()
+        if not window:
+            return
+        threshold = self.compress_config.dump_matrix_size
+        if not np.isfinite(threshold):
+            threshold = 4 << 20
+        for i, mt in enumerate(self._mp):
+            if mt is None or abs(i - center) <= window or i in self._cold_sites:
+                continue
+            if mt.numel() * mt.element_size() >= threshold:
+                self._mp[i] = offload.to_host(mt)
+                self._cold_sites.add(i)
 
     def __setitem__(self, key, array):
         mt = self._as_site(array)
@@ -866,12 +1061,16 @@ class MatrixProduct:
             )
         self._mp[key] = mt
         idx = key if key >= 0 else key + self.site_num
+        self._cold_sites.discard(idx)
         if len(self._mt_hashes) <= idx:
             self._mt_hashes.extend([None] * (idx + 1 - len(self._mt_hashes)))
         self._mt_hashes[idx] = _content_digest(array)
 
     def __iter__(self):
-        return iter(self._mp)
+        # cold sites are restored, as by __getitem__, never handed out
+        if not self._cold_sites:
+            return iter(self._mp)
+        return (self[i] for i in range(len(self._mp)))
 
     def __len__(self):
         return len(self._mp)

@@ -24,15 +24,30 @@ factorization of ``compress`` (``compress_factors`` with ``resolve``) is
 not randomized: a full SVD of each sector block (``_resolved_range``,
 counted in :data:`SVD_BLOCKS`).  The only device-to-host traffic per site
 update is the candidate spectrum (a few KB) that the host-side selection
-reads.
+reads (:data:`SPECTRUM_READS`), and with ``fetch=False`` even that copy is
+started without waiting (:class:`PendingSpectrum`): the asynchronous
+static-plan selection of ``MatrixProduct._update_mps_device`` reads it one
+visit later, or not at all.
+
+Two routes compute the candidates.  Without complement or right factor,
+while the batch fits :data:`MASK_BUDGET`, all sectors run as one batch of
+blocks masked to the full (m, n) extent with one eigensolver launch
+(:func:`_masked_batch`).  Otherwise each sector runs on its own gathered
+block (:func:`_per_sector`).  Every index set and mask goes to the device
+through the content-keyed cache :func:`_device_idx`.
 
 Differences from the JAX package: the TPU-only 128-lane policies
 (``align_l1p``/``pick_eigh``) are gone, so l1p = min(rank, cap + OVERSAMPLE);
-there is no sector-to-device placement; the async static-plan selection and
-the bucketed/gather-batched kernels are not carried (the masked batch and
-the per-sector path cover every case).
+there is no sector-to-device placement, no per-sector bucketed kernel (the
+per-sector path gathers each block at its own extent: PyTorch compiles
+nothing per shape) and no gather-batched path (above the mask budget the
+per-sector path was 1.5-2.6x faster on the H100: ``gather_probe.py``).  The JAX package's tuning knobs are module constants
+here; only :func:`async_enabled` reads the environment (at call time).
 """
 
+import hashlib
+import logging
+import os
 from typing import List
 
 import numpy as np
@@ -42,7 +57,29 @@ from renormalizer_tpu_torch.backend import backend
 from renormalizer_tpu_torch.mps.svd_qn import _sector_indices
 from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
 
+logger = logging.getLogger(__name__)
+
 OVERSAMPLE = 32
+# Threshold-criteria truncations take exact (full-rank) candidates up to
+# this rank; above it a sketch of SKETCH_CAP states, normalized by the
+# exact ||C||_F and checked for saturation.
+EXACT_CAP = 2048
+SKETCH_CAP = 1024
+# Byte budget for the one-launch masked sector batch's (nsec, m, n) blocks;
+# larger updates run the per-sector path.
+MASK_BUDGET = 256 * 2**20
+# Every STATIC_REVALIDATE consecutive static selections of one plan
+# (staggered per plan up to twice that; 0 never), re-derive the per-sector
+# counts from the previous visit's spectrum, so drifting sector weights
+# cannot freeze an early allocation.
+STATIC_REVALIDATE = 24
+# Relative kept-weight gain below which a revalidated selection keeps the
+# plan's frozen counts.
+HYSTERESIS_RTOL = 1e-6
+# Self-check level of the device truncation (:func:`verify_update`): 0 off,
+# 1 the orthonormality of the kept basis, 2 also its spectrum against
+# LAPACK's SVD.  Each check reads the device.
+VERIFY_LEVEL = 0
 
 # Gram matrices sent to torch.linalg.eigh instead of the Jacobi kernel
 # (complex only); ``chip_smoke.py`` reads it with ``jacobi_eigh.launches``.
@@ -50,11 +87,124 @@ LINALG_EIGH_GRAMS = 0
 # Sector blocks factored by ``torch.linalg.svd`` (``_resolved_range``:
 # ``compress`` and OFS); ``chip_smoke.py`` reads it beside the launches.
 SVD_BLOCKS = 0
+# Host reads of a candidate spectrum: a blocking fetch (``fetch=True``) or
+# the read of a :class:`PendingSpectrum`.  A static-plan update reads none.
+SPECTRUM_READS = 0
+# Site updates whose sketched threshold spectrum failed its saturation
+# check, so ``MatrixProduct._update_mps_device`` computed exact candidates
+# on the device again.
+SKETCH_RETRIES = 0
+# Hits and misses of the device index cache (:func:`_device_idx`).
+IDX_CACHE_STATS = {"hits": 0, "misses": 0}
+
+# Which selection path each asynchronous site update took: "static" =
+# plan-constrained, no spectrum read at all; "stale" = the previous visit's
+# spectrum (includes the periodic revalidations); "sync" = the current
+# spectrum read at once (plan miss, reason in "sync_sites"); "noarm" = a
+# selection that was not top-k per sector, so the static path could not
+# arm.  The tree's plan reuse counts "tree_stale" (the previous visit's
+# spectrum) and "tree_sync".
+PLAN_STATS = {"static": 0, "stale": 0, "sync": 0, "noarm": 0,
+              "tree_stale": 0, "tree_sync": 0}
 
 
-# Byte budget for the one-launch masked sector batch's (nsec, m, n) blocks;
-# larger updates run the per-sector path.
-MASK_BUDGET = 256 * 2**20
+def reset_plan_stats():
+    PLAN_STATS.clear()
+    PLAN_STATS.update({"static": 0, "stale": 0, "sync": 0, "noarm": 0,
+                       "tree_stale": 0, "tree_sync": 0})
+
+
+def async_enabled() -> bool:
+    """The asynchronous static-plan selection of fixed-M, percent-0 site
+    updates (``RENO_ASYNC_TRUNC=1/0``; default on when the port runs on a
+    CUDA device, off on the CPU, as the JAX package's accelerator test)."""
+    flag = os.environ.get("RENO_ASYNC_TRUNC", "")
+    if flag in ("0", "1"):
+        return flag == "1"
+    return backend.device.type == "cuda"
+
+
+_IDX_CACHE = {}
+
+
+def _device_idx(arr: np.ndarray, device=None) -> torch.Tensor:
+    """Device copy of a small host index or mask array, cached by content.
+    Keyed by the raw bytes with shape, dtype and device, not by a hash: a
+    64-bit collision would silently gather the wrong rows.  Callers must
+    not write to the returned tensor."""
+    arr = np.ascontiguousarray(arr)
+    device = backend.device if device is None else torch.device(device)
+    key = (arr.shape, arr.dtype.str, arr.tobytes(), str(device))
+    hit = _IDX_CACHE.get(key)
+    if hit is None:
+        IDX_CACHE_STATS["misses"] += 1
+        if len(_IDX_CACHE) > 4096:
+            _IDX_CACHE.clear()
+        hit = torch.as_tensor(arr.copy(), device=device)
+        _IDX_CACHE[key] = hit
+    else:
+        IDX_CACHE_STATS["hits"] += 1
+    return hit
+
+
+def plan_pattern(qnbigl, qnbigr, qntot, cap: int, system: str) -> bytes:
+    """Digest of what fixes an update's candidate layout, the key of an
+    asynchronous selection plan: the super-block quantum numbers (as int64
+    in C order, whatever route wrote them), qntot, cap and side."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.ascontiguousarray(qnbigl, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(qnbigr, dtype=np.int64).tobytes())
+    h.update(str((tuple(int(q) for q in np.atleast_1d(qntot)), cap,
+                  system)).encode())
+    return h.digest()
+
+
+def frob_norm(arr) -> float:
+    """Exact Frobenius norm of the coefficient, accumulated in double
+    precision (one scalar read): it normalizes a sketched spectrum, whose
+    tail the sketch misses.  In single precision the sum loses ~1e-7
+    relative, which moves the threshold cut."""
+    t = backend.tensor(arr)
+    return float(torch.linalg.vector_norm(_double(t)))
+
+
+class PendingSpectrum:
+    """A device candidate spectrum (lambda) whose copy to the host has been
+    started without waiting: into pinned memory with ``non_blocking=True``
+    and a CUDA event on the card, a plain clone on the CPU.  The device
+    tensor stays referenced until the event has fired; :meth:`sigma` waits
+    for it before the buffer is read."""
+
+    def __init__(self, lam: torch.Tensor):
+        self.lam = lam
+        if lam.is_cuda:
+            self._host = torch.empty(lam.shape, dtype=lam.dtype, pin_memory=True)
+            self._host.copy_(lam, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(lam.device))
+        else:
+            self._host = lam.detach().clone()
+            self._event = None
+        self._sigma = None
+
+    def sigma(self) -> np.ndarray:
+        """The host spectrum (sentinels at -1); the first call reads it."""
+        global SPECTRUM_READS
+        if self._sigma is None:
+            if self._event is not None:
+                self._event.synchronize()
+                self._event = None
+            self._sigma = lam_to_sigma(self._host.numpy())
+            self.lam = None
+            SPECTRUM_READS += 1
+        return self._sigma
+
+
+def _read_spectrum(lam: torch.Tensor) -> np.ndarray:
+    """Blocking host read of a device spectrum (counted)."""
+    global SPECTRUM_READS
+    SPECTRUM_READS += 1
+    return lam_to_sigma(lam)
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -270,8 +420,8 @@ def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen,
     :func:`_resolved_range` (``l1`` is then its rank and ``l2`` 0)."""
     m, n = cmat.shape
     dev = cmat.device
-    gr = torch.as_tensor(lset, device=dev)
-    gc = torch.as_tensor(rset, device=dev)
+    gr = _device_idx(lset, dev)
+    gc = _device_idx(rset, dev)
     block = cmat[gr][:, gc]
     a = block.T if transpose else block
     if resolve:
@@ -299,18 +449,75 @@ def _sector_candidates(cmat, lset, rset, l1, l2, transpose, want_v, gen,
     return out, lam, out_v
 
 
+def _masked_batch(cmat, secs, cap, transpose, gen):
+    """All sectors as one batch of full-extent blocks zeroed outside their
+    sector: shapes depend only on (m, n), the padded sector count and the
+    sketch width.  Returns (vals (nsec_p, rows_out, l1p), lam, l1p)."""
+    m, n = cmat.shape
+    nsec_p = -(-len(secs) // 2) * 2
+    l1p = min(min(m, n), cap + OVERSAMPLE)
+    mask_r = np.zeros((nsec_p, m), dtype=bool)
+    mask_c = np.zeros((nsec_p, n), dtype=bool)
+    l1_b = np.zeros(nsec_p, dtype=np.int64)
+    for i, (_, lset, rset) in enumerate(secs):
+        mask_r[i, lset] = True
+        mask_c[i, rset] = True
+        l1_b[i] = min(len(lset), len(rset), l1p)
+    mr = _device_idx(mask_r, cmat.device)
+    mc = _device_idx(mask_c, cmat.device)
+    block = cmat[None] * (mr[:, :, None] & mc[:, None, :]).to(cmat.dtype)
+    a = block.mT if transpose else block
+    vals, lam = _candidate_core(a, mc if transpose else mr,
+                                _device_idx(l1_b, cmat.device), l1p, gen)
+    return vals, lam, l1p
+
+
+def _per_sector(cmat, secs, cap, transpose, want_complement, want_v, gen,
+                resolve=False):
+    """Each sector on its own gathered block (:func:`_sector_candidates`).
+    Returns the candidate parts, the right factors (``None`` each without
+    ``want_v``), lam of all sectors concatenated and each sector's number of
+    slots."""
+    parts, parts_v, lams, widths = [], [], [], []
+    for _, lset, rset in secs:
+        rank = min(len(lset), len(rset))
+        l1 = min(rank, cap + OVERSAMPLE)
+        rows = len(rset) if transpose else len(lset)
+        l2 = min(max(rows - l1, 0), cap) if want_complement else 0
+        if want_v:
+            # complement candidates beyond the b-side have no right factor
+            assert l2 == 0
+        out, lam, out_v = _sector_candidates(cmat, lset, rset, l1, l2,
+                                             transpose, want_v, gen, resolve)
+        parts.append(out)
+        parts_v.append(out_v)
+        lams.append(lam)
+        widths.append(l1 + l2)
+    return parts, parts_v, torch.cat(lams), widths
+
+
 def candidates(coef_array, qnbigl, qnbigr, qntot, system: str, cap: int,
                want_complement: bool, want_v: bool = False,
-               resolve: bool = False):
+               resolve: bool = False, fetch: bool = True,
+               return_layout: bool = False):
     """Truncation candidates of the coefficient ``coef_array``.
 
-    Returns ``(parts, sigma, qn_list)`` — plus ``parts_v`` with ``want_v`` —
-    where ``parts`` are device matrices (rows x slots, sector-major,
-    scattered into the full row space of the kept side), ``sigma`` the host
-    candidate singular values (-1 marks unselectable slots) and ``qn_list``
-    the per-slot quantum numbers.  Without complement or right factor all
-    sectors run as one masked batch with one eigensolver launch; otherwise
-    each sector runs on its gathered block."""
+    Returns ``(parts, sigma, qn_list)`` — plus ``layout`` with
+    ``return_layout``, plus ``parts_v`` with ``want_v`` — where ``parts``
+    are device matrices (rows x slots, sector-major, scattered into the full
+    row space of the kept side), ``sigma`` the host candidate singular
+    values (-1 marks unselectable slots) and ``qn_list`` the per-slot
+    quantum numbers.  With ``fetch=False`` the second element is instead a
+    :class:`PendingSpectrum` of the device lambda = sigma^2, whose copy to
+    the host has started and nothing waits for.
+
+    Without complement or right factor, while ``nsec * m * n * itemsize``
+    fits :data:`MASK_BUDGET`, all sectors run as one masked batch with one
+    eigensolver launch; otherwise each sector runs on its own gathered
+    block.  ``layout`` is ``(nsec_padded, l1p)`` for the batch
+    (sector-major, ``l1p`` slots a sector, each sector's slots by
+    descending lambda with the sentinels last) and ``None`` for the
+    per-sector path."""
     qntot = np.atleast_1d(np.asarray(qntot))
     qn_size = len(qntot)
     localqnl = np.asarray(qnbigl).reshape(-1, qn_size)
@@ -326,58 +533,35 @@ def candidates(coef_array, qnbigl, qnbigr, qntot, system: str, cap: int,
     def label(nl):
         return tuple(nl) if not transpose else tuple(qntot - nl)
 
+    def spectrum(lam):
+        return _read_spectrum(lam) if fetch else PendingSpectrum(lam)
+
     secs = [s for s in sectors if min(len(s[1]), len(s[2])) > 0]
-    # pad the sector axis to a multiple of 2, as the JAX package does; a pad
-    # slot has all-zero masks and l1_real = 0, so it reports only sentinels
+    # the sector axis is padded to a multiple of 2, as the JAX package
+    # does; a pad slot has all-zero masks and l1_real = 0, so it reports
+    # only sentinels
     nsec_p = -(-len(secs) // 2) * 2
-    itemsize = cmat.element_size()
     if (not want_complement and not want_v
-            and nsec_p * m * n * itemsize <= MASK_BUDGET):
-        l1p = min(min(m, n), cap + OVERSAMPLE)
-        mask_r = np.zeros((nsec_p, m), dtype=bool)
-        mask_c = np.zeros((nsec_p, n), dtype=bool)
-        l1_b = np.zeros(nsec_p, dtype=np.int64)
+            and nsec_p * m * n * cmat.element_size() <= MASK_BUDGET):
+        vals, lam, l1p = _masked_batch(cmat, secs, cap, transpose, gen)
         qn_list: List[tuple] = []
-        for i in range(nsec_p):
-            if i >= len(secs):
-                qn_list.extend([qn_list[-1]] * l1p)
-                continue
-            nl, lset, rset = secs[i]
-            mask_r[i, lset] = True
-            mask_c[i, rset] = True
-            l1_b[i] = min(len(lset), len(rset), l1p)
+        for nl, _, _ in secs:
             qn_list.extend([label(nl)] * l1p)
-        mr = backend.tensor(mask_r)
-        mc = backend.tensor(mask_c)
-        block = cmat[None] * (mr[:, :, None] & mc[:, None, :]).to(cmat.dtype)
-        a = block.mT if transpose else block
-        vals, lam = _candidate_core(a, mc if transpose else mr,
-                                    backend.tensor(l1_b), l1p, gen)
+        qn_list.extend([qn_list[-1]] * (l1p * (nsec_p - len(secs))))
         # (nsec, rows_out, l1p) -> (rows_out, nsec*l1p), sector-major
         out = vals.permute(1, 0, 2).reshape(vals.shape[1], nsec_p * l1p)
-        return [out], lam_to_sigma(lam.reshape(-1)), qn_list
+        ret = ([out], spectrum(lam.reshape(-1)), qn_list)
+        return ret + ((nsec_p, l1p),) if return_layout else ret
 
-    parts, parts_v, lams = [], [], []
-    qn_list = []
-    for nl, lset, rset in secs:
-        rank = min(len(lset), len(rset))
-        l1 = min(rank, cap + OVERSAMPLE)
-        rows = len(rset) if transpose else len(lset)
-        l2 = min(max(rows - l1, 0), cap) if want_complement else 0
-        if want_v:
-            # complement candidates beyond the b-side have no right factor
-            assert l2 == 0
-        out, lam, out_v = _sector_candidates(cmat, lset, rset, l1, l2,
-                                             transpose, want_v, gen, resolve)
-        parts.append(out)
-        parts_v.append(out_v)
-        lams.append(lam)
-        qn_list.extend([label(nl)] * (l1 + l2))
-    # ONE small synchronous fetch: all candidate spectra at once
-    sigma = lam_to_sigma(torch.cat(lams))
-    if want_v:
-        return parts, sigma, qn_list, parts_v
-    return parts, sigma, qn_list
+    parts, parts_v, lam, widths = _per_sector(cmat, secs, cap, transpose,
+                                              want_complement, want_v, gen,
+                                              resolve)
+    qn_list = [label(nl) for (nl, _, _), w in zip(secs, widths) for _ in range(w)]
+    # ONE small fetch: all candidate spectra at once
+    ret = (parts, spectrum(lam), qn_list)
+    if return_layout:
+        ret = ret + (None,)
+    return ret + (parts_v,) if want_v else ret
 
 
 def apply_selection(coef_array, parts, sidx, m: int, n: int, system: str,
@@ -392,7 +576,7 @@ def apply_selection(coef_array, parts, sidx, m: int, n: int, system: str,
     ``comp = C conj(ms)`` (m, M)."""
     cmat = backend.tensor(coef_array).reshape(m, n)
     u = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    ms = u[:, torch.as_tensor(np.asarray(sidx, dtype=np.int64), device=u.device)]
+    ms = u[:, _device_idx(np.asarray(sidx, dtype=np.int64), u.device)]
     transpose = system == "R"
     comp = cmat @ ms.conj() if transpose else ms.mH @ cmat
     if lshape is None:
@@ -496,8 +680,8 @@ def qr_qn_device(coef_array, qnbigl, qnbigr, qntot, system: str):
     qnl_list: List[tuple] = []
     qnr_list: List[tuple] = []
     for nl, lset, rset in sectors:
-        gr = torch.as_tensor(lset, device=cmat.device)
-        gc = torch.as_tensor(rset, device=cmat.device)
+        gr = _device_idx(lset, cmat.device)
+        gc = _device_idx(rset, cmat.device)
         block = cmat[gr][:, gc]
         k = min(len(lset), len(rset))
         if system == "R":
@@ -516,3 +700,30 @@ def qr_qn_device(coef_array, qnbigl, qnbigr, qntot, system: str):
         qnl_list.extend([tuple(nl)] * k)
         qnr_list.extend([tuple(qntot - nl)] * k)
     return torch.cat(parts_u, dim=1), qnl_list, torch.cat(parts_v, dim=1), qnr_list
+
+
+def verify_update(ms_mat, coef_array, sigma, sidx, m, n, label="") -> bool:
+    """With :data:`VERIFY_LEVEL` set, the kept basis ``ms_mat`` (rows x M) must be
+    orthonormal (its violation makes DMRG energies dip below the
+    variational minimum) and, at level 2, its spectrum ``sigma[sidx]`` must
+    match LAPACK's SVD of the coefficient.  A failure is logged loudly and
+    the run goes on; returns whether the update passed."""
+    msh = ms_mat.detach().cpu().numpy()
+    g = msh.conj().T @ msh
+    err = float(np.abs(g - np.eye(g.shape[1])).max())
+    tol = 1e-3 if msh.real.dtype.itemsize == 4 else 1e-8
+    spec_err = 0.0
+    if VERIFY_LEVEL >= 2:
+        cm = backend.tensor(coef_array).detach().cpu().numpy().reshape(m, n)
+        s_exact = np.linalg.svd(cm, compute_uv=False)
+        kept = np.sort(np.asarray(sigma)[np.asarray(sidx, dtype=int)])[::-1]
+        # complement slots (percent > 0) may keep more states than the rank
+        s_exact = np.pad(s_exact, (0, max(len(kept) - len(s_exact), 0)))
+        denom = max(s_exact[0], 1e-30)
+        spec_err = float(np.abs(np.clip(kept, 0, None) - s_exact[:len(kept)]).max()
+                         / denom)
+    if err > tol or spec_err > 100 * tol:
+        logger.error("TRUNC VERIFY FAIL %s: orth_err=%.3e spec_err=%.3e",
+                     label, err, spec_err)
+        return False
+    return True

@@ -898,11 +898,12 @@ class TTNS(TTNBase):
         """Truncate a 2-site (node+parent) coefficient and write back
         (reference ``tree.py:1470-1514``): randomized sector-pure candidates
         on the device, the selection on the host from their spectrum (one
-        small fetch), then the device gather and rotation, as
-        ``Mps._update_mps_device``.  Threshold criteria take the full-rank
-        cap; sentinel slots (sigma = -1) count toward neither the bond
-        dimension nor the selection; the kept slots go in sector-major
-        order."""
+        small fetch, or with ``trunc_device.async_enabled`` the previous
+        visit's spectrum: :meth:`_plan_spectrum`), then the device gather
+        and rotation, as ``Mps._update_mps_device``.  Threshold criteria
+        take the full-rank cap; sentinel slots (sigma = -1) count toward
+        neither the bond dimension nor the selection; the kept slots go in
+        sector-major order."""
         if self.compress_config.bonddim_should_set:
             self.compress_config.set_bonddim(len(self.node_list) + 1)
         parent = node.parent
@@ -925,9 +926,20 @@ class TTNS(TTNBase):
         else:
             cap = min(dim1, dim2)
         system = "L" if cano_parent else "R"
+        # the JAX package's plan reuse (tree.py:914-940): at percent 0 with
+        # a fixed cap and an unchanged quantum-number pattern, select from
+        # the previous visit's spectrum, whose copy to the host ran
+        # meanwhile; there is no static path
+        use_async = (percent == 0 and trunc_device.async_enabled()
+                     and (m is not None
+                          or self.compress_config.criteria is CompressCriteria.fixed))
         parts, sigma, qn_list = trunc_device.candidates(
             tensor, qnbigl, qnbigr, self.qntot, system, cap,
-            want_complement=(percent != 0))
+            want_complement=(percent != 0), fetch=not use_async)
+        if use_async:
+            sigma = self._plan_spectrum(
+                bond_idx, cano_parent, sigma,
+                trunc_device.plan_pattern(qnbigl, qnbigr, self.qntot, cap, system))
         valid = sigma[sigma >= 0]
         if m is None:
             m_trunc = self.compress_config.compute_m_trunc(valid, bond_idx, left=False)
@@ -941,6 +953,23 @@ class TTNS(TTNBase):
         else:
             m_node, m_parent = comp, ms.T        # (dim1, k), (k, dim2)
         self._write_2site(node, m_node, m_parent, msqn, cano_parent)
+
+    def _plan_spectrum(self, node_idx, cano_parent, pending, pattern):
+        """The spectrum an asynchronous update selects from: the previous
+        visit's of the same ``(node_idx, cano_parent)`` when its pattern
+        digest (``trunc_device.plan_pattern``) matches, else the current
+        one; this visit's ``PendingSpectrum`` becomes the plan."""
+        plans = self.__dict__.setdefault("_trunc_plans", {})
+        key = (node_idx, bool(cano_parent))
+        plan = plans.get(key)
+        if plan is not None and plan[0] == pattern:
+            sigma = plan[1].sigma()
+            trunc_device.PLAN_STATS["tree_stale"] += 1
+        else:
+            sigma = pending.sigma()
+            trunc_device.PLAN_STATS["tree_sync"] += 1
+        plans[key] = (pattern, pending)
+        return sigma
 
     def _write_2site(self, node, m_node, m_parent, msqn, cano_parent):
         parent = node.parent

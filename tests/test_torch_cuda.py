@@ -185,3 +185,23 @@ def test_tree_dmrg_reaches_the_kernel(cuda):
     assert jacobi_eigh.launches - before >= 4 * 5
     assert ttns.root.tensor.device.type == "cuda"
     assert abs(min(energies) - 0.3361574422) < 1e-5
+
+
+@pytest.mark.cuda
+def test_offload_round_trip_keeps_layout(cuda):
+    """A permuted view goes to pinned host memory and back with its values
+    and its layout (a contiguous copy would send the next product down
+    another cuBLAS path); a TieredStore evicts and restores it."""
+    from renormalizer_tpu_torch.mps import offload
+
+    x = torch.randn(4, 5, 6, device=cuda).permute(2, 0, 1)
+    host = offload.to_host(x)
+    assert host.device.type == "cpu" and host.is_pinned()
+    assert host.stride() == x.stride()
+    back = offload.to_device(host)
+    assert back.device == x.device and back.stride() == x.stride()
+    assert torch.equal(back, x)
+    store = offload.TieredStore(1)
+    store["a"], store["b"] = x, x + 1
+    assert store.n_evicted == 1 and store._data["a"].is_pinned()
+    assert torch.equal(store["a"], x) and store.n_restored == 1

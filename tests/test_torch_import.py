@@ -68,7 +68,8 @@ def test_port_runs_without_jax():
                  "interop", "mps.tda", "cv.spectra_cv", "cv.zerot", "cv.finitet",
                  "vibration.vscf", "vibronic.vibronic", "tn.node", "tn.treebase",
                  "tn.symbolic_ttno", "tn.tree", "tn.hop_expr", "tn.gs",
-                 "tn.time_evolution", "tn.utils_eph", "model.pyrazine"):
+                 "tn.time_evolution", "tn.utils_eph", "model.pyrazine",
+                 "mps.offload", "utils.profiling"):
         assert "renormalizer_tpu_torch." + name in out["modules"]
     # 0.76317132 is the dense expm value of sigma_z(0.4) for this model
     assert out["sigma_z"][0] == 1.0 and abs(out["sigma_z"][2] - 0.76317132) < 1e-6
