@@ -169,6 +169,27 @@ Phases (any failure exits non-zero):
      run's most frequent and widest shapes timed; launches_by_path
      async_dmrg, sync_dmrg, sketch_threshold_dmrg, offload_dmrg,
      tree_dmrg_async.
+ 16. the mesh (renormalizer_tpu_torch.parallel) on a (1, 2, 2) mesh: four
+     distinct cards when four are visible, else cuda:0 named four times
+     (every piece of the sharded path runs, the copies between cards do
+     not); the number of distinct devices is printed.  (a) phase 4's DMRG
+     under the mesh, the bond-parallel hop of every divisible site update
+     and, on several distinct cards only, the sectors placed round-robin:
+     the energy within E_TOL of E_REF and of phase 4's, at least one
+     sharded update; printed: the sharded and fallback counts, the gathers
+     run with their bytes per matvec and per sweep, the sweep seconds
+     beside phase 4's, the sectors placed per device, PLAN_STATS and the
+     Jacobi launches (none at the sweep cap; the shapes phase 3 did not
+     hold against the plain version; launches_by_path sharded_dmrg); (b)
+     candidates of (a)'s widest coefficient (several sectors) with
+     placement forced on and off, bitwise equal; (c) 14(a) under the mesh,
+     the general tree hop engaged, within
+     TREE_E_TOL (launches_by_path sharded_tree_dmrg); (d) with a second
+     visible card one Jacobi launch there held against the plain version,
+     else a line saying it was not exercised; (e) phase 4's DMRG without
+     and with the mesh in alternated order (unsharded, sharded, sharded,
+     unsharded), every sweep run: each within E_TOL, the median of the last
+     five sweeps of each run and their ratios printed.
 A [summary] line repeats the run's times as JSON, so that the end of the
 output carries them, with the seconds of each phase and of the whole script.  The line before the last holds the kernel record as
 JSON (with the launches of each path: DMRG, SpinBosonDynamics,
@@ -192,7 +213,12 @@ runs phases 1, 2 and 14 alone and prints no result line, and
 
     python3 chip_smoke.py --hide
 
-phases 1, 2, 4 and 15 (no result line).
+phases 1, 2, 4 and 15 (no result line), and
+
+    python3 chip_smoke.py --mesh [--profile]
+
+phases 1, 2, 4 and 16 (no result line; with --profile 16(a) runs under
+the profiler, as does the full run's 16(a) with --profile).
 """
 
 import collections
@@ -776,7 +802,7 @@ def phase_main_path(card):
     e_exp = opt.expectation(mpo)
     print(f"[main] <psi|H|psi> of the result {e_exp:.10f}", flush=True)
     check(abs(e_exp - e_min) < 1e-5, f"expectation {e_exp} vs energy {e_min}")
-    return launches, total
+    return launches, total, dict(energy=e_min, sweeps=sweep_times, total=total)
 
 
 def dense_operator(model, terms):
@@ -2952,6 +2978,304 @@ def phase_hide(card, gram_tol):
     return launches, summary
 
 
+def _mesh_for_card():
+    """Phase 16's (1, 2, 2) mesh: four distinct cards when four are
+    visible, else the first card named four times (every piece of the
+    sharded path runs; the copies between cards are skipped)."""
+    import torch
+
+    from renormalizer_tpu_torch import parallel as par
+
+    if torch.cuda.device_count() >= 4:
+        mesh = par.make_mesh(i=2, j=2)
+    else:
+        mesh = par.make_mesh(i=2, j=2, devices=[torch.device("cuda", 0)] * 4)
+    distinct = len(set(mesh.devices.flat))
+    print(f"[mesh] mesh {mesh.shape} over {[str(d) for d in mesh.devices.flat]}: "
+          f"{distinct} distinct device(s) of {torch.cuda.device_count()} visible",
+          flush=True)
+    return mesh, distinct
+
+
+def phase_mesh_dmrg(card, gram_tol, mesh, distinct, main, profile=False):
+    """Phase 16(a): phase 4's DMRG (M=256, its procedure) under the mesh:
+    the bond-parallel hop of every divisible site update, and the sectors
+    placed round-robin over the mesh's devices when it spans more than one
+    distinct card (the default rule; none on one card).  Gates: the energy
+    within E_TOL of E_REF and of phase 4's; at least one sharded update;
+    sectors placed exactly when the mesh has several distinct cards; every
+    Gram through the kernel, none at the sweep cap, the shapes phase 3 did
+    not hold against the plain version.  Returns the launches, the run's
+    numbers and the arguments of the run's widest candidates call (16(b)'s
+    coefficient: only a reference is kept inside the timed window, the
+    copy is made after it).  With ``profile`` the run is traced by
+    torch.profiler and its device time per kernel and busy share printed."""
+    import torch
+
+    from renormalizer_tpu_torch import Mpo, Mps, optimize_mps
+    from renormalizer_tpu_torch import parallel as par
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.mps import gs, trunc_device
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.parallel import hop as phop
+
+    tag = "[mesh a]"
+    model = holstein_chain(6)
+    mpo = Mpo(model)
+    mps = Mps.random(model, 1, M, percent=1.0)
+    mps.optimize_config.procedure = PROCEDURE
+    mps.optimize_config.method = "2site"
+    sweep_times = []
+    single_sweep = gs.single_sweep
+    candidates = trunc_device.candidates
+    widest = {}
+
+    def timed_sweep(*args, **kwargs):
+        backend.sync()
+        t0 = time.perf_counter()
+        out = single_sweep(*args, **kwargs)
+        backend.sync()
+        sweep_times.append(time.perf_counter() - t0)
+        return out
+
+    def recorded_candidates(*args, **kwargs):
+        # a reference to the widest coefficient: no copy, no wait
+        if args[0].numel() > widest.get("numel", 0):
+            widest.update(args=args, kwargs=kwargs, numel=args[0].numel())
+        return candidates(*args, **kwargs)
+
+    grams = GramRecord(keep_grams=True)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
+    gs.single_sweep = timed_sweep
+    trunc_device.candidates = recorded_candidates
+    trunc_device.jacobi_eigh = grams
+    par.set_global_mesh(mesh)
+    phop.reset_stats()
+    trunc_device.SECTORS_PLACED.clear()
+    trunc_device.reset_plan_stats()
+    try:
+        jacobi_eigh.launches = 0
+        trunc_device.LINALG_EIGH_GRAMS = 0
+        backend.sync()
+        t0 = time.perf_counter()
+        with prof:
+            energies, opt = optimize_mps(mps, mpo)
+            backend.sync()
+        total = time.perf_counter() - t0
+        launches = jacobi_eigh.launches
+        elsewhere = trunc_device.LINALG_EIGH_GRAMS
+        stats = {k: phop.STATS[k] for k in ("sharded", "fallback")}
+        gathers = dict(phop.GATHERS)
+        placed = dict(trunc_device.SECTORS_PLACED)
+        plan = {k: v for k, v in trunc_device.PLAN_STATS.items()
+                if v and k != "sync_sites"}
+        plan["sync_reasons"] = dict(collections.Counter(
+            r for _, r in trunc_device.PLAN_STATS.get("sync_sites", [])))
+        audit = phop.audit_engaged_collectives(n_sweeps=len(sweep_times))
+    finally:
+        par.set_global_mesh(None)
+        gs.single_sweep = single_sweep
+        trunc_device.candidates = candidates
+        trunc_device.jacobi_eigh = jacobi_eigh
+    placed_call = dict(widest, args=(widest["args"][0].clone(),) + widest["args"][1:])
+    if profile:
+        print_device_breakdown(prof, total, card)
+    e_min = float(min(energies))
+    none = {"count": 0, "bytes": 0}
+    per_sweep = audit["per_sweep"].get("all-gather", none)
+    per_matvec = audit["per_matvec"].get("all-gather", none)
+    print(f"{tag} energies per sweep: {[float(e) for e in energies]}", flush=True)
+    print(f"{tag} lowest energy {e_min:.10f} (reference {E_REF}, diff "
+          f"{e_min - E_REF:+.3e}; phase 4 {main['energy']:.10f}, diff "
+          f"{e_min - main['energy']:+.3e}); bond dims {opt.bond_dims}", flush=True)
+    print(f"{tag} sweep seconds ({card}): sharded "
+          f"{[round(t, 4) for t in sweep_times]}, total {total:.2f} s; phase 4 "
+          f"{[round(t, 4) for t in main['sweeps']]}, total {main['total']:.2f} s",
+          flush=True)
+    print(f"{tag} site updates sharded {stats['sharded']}, fallback "
+          f"{stats['fallback']}; sharded matvecs {audit['matvecs']}; gathers run "
+          f"{gathers['count']} ({gathers['bytes']} bytes): per matvec "
+          f"{per_matvec['count']:.1f} gathers, {per_matvec['bytes']:.0f} bytes; per "
+          f"sweep {per_sweep['count']:.1f} gathers, {per_sweep['bytes']:.0f} bytes",
+          flush=True)
+    print(f"{tag} sectors placed per device {placed} ({distinct} distinct "
+          f"device(s): placed only on several); PLAN_STATS {plan}; jacobi "
+          f"launches {launches}; Gram eigh elsewhere {elsewhere}", flush=True)
+    grams.report(tag, launches)
+    _hold_unheld(tag, grams, phase3_held(), gram_tol)
+    check(abs(e_min - E_REF) < E_TOL, f"{tag} energy {e_min} not within {E_TOL} of {E_REF}")
+    check(abs(e_min - main["energy"]) < E_TOL,
+          f"{tag} energy {e_min} not within {E_TOL} of phase 4's {main['energy']}")
+    check(stats["sharded"] > 0, f"{tag} no site update was sharded")
+    check((sum(placed.values()) > 0) == (distinct > 1),
+          f"{tag} sectors placed {placed} on a mesh of {distinct} distinct device(s)")
+    check(launches > 0, f"{tag} never launched the Jacobi kernel")
+    check(elsewhere == 0, f"{tag} {elsewhere} Gram eigh went around the kernel")
+    check(max(opt.bond_dims) <= M and len(opt) == 18, f"{tag} bad result shape")
+    check(all(bool(torch.isfinite(t).all()) and t.device == backend.device for t in opt),
+          f"{tag} a site tensor is non-finite or off the home device")
+    summary = dict(sweeps=[round(t, 4) for t in sweep_times], total=round(total, 4),
+                   energy_diff=f"{e_min - E_REF:+.3e}", sharded=stats["sharded"],
+                   fallback=stats["fallback"], gathers_per_sweep=per_sweep,
+                   gathers_per_matvec=per_matvec, gathers_run=gathers, sectors_placed=placed, plan_stats=plan)
+    return launches, summary, placed_call
+
+
+def phase_mesh_candidates(mesh, call):
+    """Phase 16(b): candidates of 16(a)'s widest coefficient (several
+    sectors) with the sectors placed over the mesh (``PLACE_SECTORS``
+    forced on, so a mesh of one card places too) and without, both through
+    the per-sector path (MASK_BUDGET 0): bitwise equal."""
+    import numpy as np
+    import torch
+
+    from renormalizer_tpu_torch import parallel as par
+    from renormalizer_tpu_torch.mps import trunc_device
+
+    tag = "[mesh b]"
+    coef, qnbigl, qnbigr, qntot, system, cap = call["args"]
+    kwargs = dict(want_complement=call["kwargs"].get("want_complement", False))
+    runs = {}
+    par.set_global_mesh(mesh)
+    try:
+        for flag in (False, True):
+            with _constants(MASK_BUDGET=0, PLACE_SECTORS=flag):
+                trunc_device.SECTORS_PLACED.clear()
+                parts, sigma, qn_list = trunc_device.candidates(
+                    coef, qnbigl, qnbigr, qntot, system, cap, **kwargs)
+                runs[flag] = (parts, sigma, qn_list, dict(trunc_device.SECTORS_PLACED))
+    finally:
+        par.set_global_mesh(None)
+    (p0, s0, q0, d0), (p1, s1, q1, d1) = runs[False], runs[True]
+    shape = tuple(int(d) for d in coef.shape)
+    print(f"{tag} coefficient {shape}, cap {cap}, {len(p1)} sectors; placed "
+          f"{d1} (off: {d0}); candidate columns {[p.shape[1] for p in p1]}", flush=True)
+    check(not d0 and sum(d1.values()) == len(p1) > 1, f"{tag} placement {d0} / {d1}")
+    check(q0 == q1 and np.array_equal(s0, s1)
+          and all(torch.equal(a, b) for a, b in zip(p0, p1)),
+          f"{tag} placement changed the candidates")
+    print(f"{tag} candidates and spectra bitwise equal with placement on and off",
+          flush=True)
+
+
+def phase_mesh_tree(card, gram_tol, mesh):
+    """Phase 16(c): 14(a)'s tree DMRG under the mesh: the general hop
+    engaged, the energy within 14(a)'s gate."""
+    from renormalizer_tpu_torch import parallel as par
+    from renormalizer_tpu_torch.parallel import hop as phop
+
+    par.set_global_mesh(mesh)
+    phop.reset_stats()
+    try:
+        launches, out = phase_tree_dmrg(card, gram_tol, tag="[mesh c]",
+                                        time_shapes=False)
+        stats = dict(phop.STATS)
+    finally:
+        par.set_global_mesh(None)
+    print(f"[mesh c] tree updates sharded {stats['sharded']}, fallback "
+          f"{stats['fallback']} (the general factory: the tree calls no other)",
+          flush=True)
+    check(stats["sharded"] > 0, "[mesh c] the general tree hop never engaged")
+    return launches, dict(sweeps=[round(t, 4) for t in out["sweeps"]],
+                          energy_diff=f"{out['energy_diff']:+.3e}", **stats)
+
+
+def phase_mesh_second_device(gram_tol):
+    """Phase 16(d): with a second visible card, one Jacobi launch there
+    held against the plain version; else says that it was not exercised."""
+    import numpy as np
+    import torch
+
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_reference
+
+    tag = "[mesh d]"
+    if torch.cuda.device_count() < 2:
+        print(f"{tag} one visible device: a Jacobi launch on a second device was "
+              f"NOT exercised", flush=True)
+        return False
+    dev = torch.device("cuda", 1)
+    a = _symmetric(np.random.default_rng(16), (2, 288, 288), torch.float32).to(dev)
+    launches0 = jacobi_eigh.launches
+    w, v = jacobi_eigh(a)
+    torch.cuda.synchronize(dev)
+    w_p, v_p = jacobi_eigh_reference(a)
+    check(jacobi_eigh.launches == launches0 + 1 and w.device == dev == v.device,
+          f"{tag} the launch did not run on {dev}")
+    _check_eigh(f"{tag} kernel on {dev}", _eigh_errors(a, w, v), gram_tol)
+    _check_eigh(f"{tag} plain on {dev}", _eigh_errors(a, w_p, v_p), gram_tol)
+    err = float((w - w_p).abs().max() / torch.linalg.matrix_norm(a).max())
+    check(err < 2 * gram_tol["eig"], f"{tag} kernel and plain differ by {err:.2e}·|A|")
+    print(f"{tag} one (2, 288, 288) launch on {dev}: kernel and plain inside the "
+          f"phase-3 tolerances, |w - w_plain| {err:.2e}·|A|", flush=True)
+    return True
+
+
+def phase_mesh_alternated(card, gram_tol, mesh):
+    """Phase 16(e): phase 4's DMRG from a fresh start without and with the
+    mesh in alternated order (unsharded, sharded, sharded, unsharded), every
+    sweep of the procedure run (``_hide_dmrg``, the card's default
+    selection): each within E_TOL of E_REF; printed: the median of each
+    run's last five sweeps, their ratio in each adjacent pair, the gathers
+    run per sweep.  The sharded runs' Gram shapes that phase 3 did not hold
+    are held against the plain version."""
+    import numpy as np
+
+    from renormalizer_tpu_torch import Mpo, Mps
+    from renormalizer_tpu_torch import parallel as par
+    from renormalizer_tpu_torch.parallel import hop as phop
+
+    tag = "[mesh e]"
+    model = holstein_chain(6)
+    mpo = Mpo(model)
+    runs = []
+    for sharded in (False, True, True, False):
+        mps = Mps.random(model, 1, M, percent=1.0)
+        mps.optimize_config.procedure = PROCEDURE
+        mps.optimize_config.method = "2site"
+        par.set_global_mesh(mesh if sharded else None)
+        phop.reset_stats()
+        try:
+            run = _hide_dmrg(f"{tag} {'sharded' if sharded else 'unsharded'}", card,
+                             mps, mpo, {})
+        finally:
+            par.set_global_mesh(None)
+        run["gathers"] = dict(phop.GATHERS)
+        run["steady"] = float(np.median([sw["seconds"] for sw in run["sweeps"][-5:]]))
+        runs.append((sharded, run))
+        check(abs(run["e_min"] - E_REF) < E_TOL,
+              f"{tag} energy {run['e_min']} not within {E_TOL} of {E_REF}")
+    ratios = [round(runs[1][1]["steady"] / runs[0][1]["steady"], 3),
+              round(runs[2][1]["steady"] / runs[3][1]["steady"], 3)]
+    print(f"{tag} median of the last five sweeps ({card}), in order: "
+          f"{[('sharded' if s else 'unsharded', round(r['steady'], 4)) for s, r in runs]}; "
+          f"sharded / unsharded in the two adjacent pairs {ratios}; gathers run per "
+          f"sweep (sharded runs) "
+          f"{[round(r['gathers']['count'] / len(r['sweeps']), 1) for s, r in runs if s]}",
+          flush=True)
+    _hold_unheld(tag, _merged([r["grams"] for s, r in runs if s]), phase3_held(),
+                 gram_tol)
+    return dict(steady_medians=[round(r["steady"], 4) for _, r in runs],
+                order=["sharded" if s else "unsharded" for s, _ in runs],
+                ratios=ratios,
+                sweeps=[[round(sw["seconds"], 4) for sw in r["sweeps"]] for _, r in runs],
+                energy_diffs=[f"{r['e_min'] - E_REF:+.3e}" for _, r in runs])
+
+
+def phase_mesh(card, gram_tol, main, profile=False):
+    """Phase 16: the port's mesh parallelism on the card, (a)-(e)."""
+    mesh, distinct = _mesh_for_card()
+    launches, dmrg, call = phase_mesh_dmrg(card, gram_tol, mesh, distinct, main, profile)
+    phase_mesh_candidates(mesh, call)
+    tree_launches, tree = phase_mesh_tree(card, gram_tol, mesh)
+    second = phase_mesh_second_device(gram_tol)
+    alternated = phase_mesh_alternated(card, gram_tol, mesh)
+    return ({"sharded_dmrg": launches, "sharded_tree_dmrg": tree_launches},
+            dict(distinct_devices=distinct, dmrg=dmrg, tree=tree,
+                 second_device_launch=second, alternated=alternated))
+
+
 def phase_profile_step(card, tag, step):
     """Phase 7: one more evolution step (``step()``) under torch.profiler."""
     import torch
@@ -3069,6 +3393,25 @@ def main():
         print(f"[hide] phases 1, 2, 4 and 15 passed in "
               f"{time.perf_counter() - _T0:.1f} s", flush=True)
         return
+    if "--mesh" in sys.argv[1:]:
+        # phases 1, 2, 4 and 16 alone; no kernel record and no result line
+        _, card = phase_environment()
+        phase_build()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
+        with prof:
+            _, wall_s, main_run = phase_main_path(card)
+        if profile:
+            print_device_breakdown(prof, wall_s, card)
+        t0 = time.perf_counter()
+        mesh_launches, mesh_s = phase_mesh(card, TOL_F32, main_run, profile)
+        print("[mesh] " + json.dumps(dict(mesh_s, launches=mesh_launches,
+                                          seconds=round(time.perf_counter() - t0, 1))),
+              flush=True)
+        print(f"[mesh] phases 1, 2, 4 and 16 passed in "
+              f"{time.perf_counter() - _T0:.1f} s", flush=True)
+        return
     phase_s = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -3085,7 +3428,7 @@ def main():
         torch.profiler.ProfilerActivity.CUDA]) if profile else contextlib.nullcontext()
     t0 = time.perf_counter()
     with prof:
-        launches, wall_s = phase_main_path(card)
+        launches, wall_s, main_run = phase_main_path(card)
     if profile:
         print_device_breakdown(prof, wall_s, card)
     phase_s["4"] = round(time.perf_counter() - t0, 1)
@@ -3102,6 +3445,8 @@ def main():
     qc_launches, qc_s = timed("13", phase_qc, card, record["tol_f32"])
     tree_launches, tree_s = timed("14", phase_tree, card, record["tol_f32"], profile)
     hide_launches, hide_s = timed("15", phase_hide, card, record["tol_f32"])
+    mesh_launches, mesh_s = timed("16", phase_mesh, card, record["tol_f32"], main_run,
+                                  profile)
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -3136,6 +3481,7 @@ def main():
         "pyrazine_max_deviation": f"{tree_s['pyrazine_dev']:.3e}",
         "tree_oracles": {k: f"{v:.3e}" for k, v in tree_s["oracles"].items()},
         "host_hiding": hide_s,
+        "mesh": mesh_s,
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
@@ -3146,7 +3492,7 @@ def main():
     by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
                "transport_kubo": kubo_launches, **vmf_launches, **excited_launches,
                "qc": qc_launches["fp64"] + qc_launches["fp32"],
-               "tree_dmrg": tree_launches, **hide_launches}
+               "tree_dmrg": tree_launches, **hide_launches, **mesh_launches}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
           f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
           f"constructor {kubo_launches}, ChargeDiffusionDynamics (b)-(c) "
@@ -3155,7 +3501,8 @@ def main():
           f"{excited_launches['state_averaged_dmrg']}, SpectraZtCV (12b) "
           f"{excited_launches['cv_zerot']}, H2O QC-DMRG (13a fp64 + 13b fp32) "
           f"{qc_launches['fp64']} + {qc_launches['fp32']}, tree DMRG (14a) "
-          f"{tree_launches}, phase 15 {hide_launches}", flush=True)
+          f"{tree_launches}, phase 15 {hide_launches}, phase 16 {mesh_launches}",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "jacobi_eigh", "route": "cuda", "source": JACOBI_SOURCE,

@@ -15,8 +15,12 @@ computes lives on one ``torch.device`` held here:
 * Every random draw takes an explicit ``torch.Generator`` seeded with
   :attr:`Backend.seed` (2019, the JAX package's seed), so numpy-side draws
   (``Mps.random``) match the JAX package exactly.
+* :meth:`Backend.use_device` points the backend at another device for a
+  scope (``cv.spectra_cv.batch_run``'s workers, one per visible card), the
+  counterpart of ``jax.default_device``.
 """
 
+import contextlib
 import logging
 import os
 
@@ -94,6 +98,22 @@ class Backend:
         take a new one each time, so a call's draws do not depend on what
         ran before it — as the JAX package's fixed ``PRNGKey(seed)``."""
         return torch.Generator(device=self.device).manual_seed(self._seed)
+
+    @contextlib.contextmanager
+    def use_device(self, device):
+        """Within the scope, :attr:`device` (so :meth:`tensor`,
+        :meth:`generator` and the truncation's index caches) is ``device``,
+        and so is the current CUDA device."""
+        prev = self.device
+        self.device = torch.device(device)
+        try:
+            if self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    yield
+            else:
+                yield
+        finally:
+            self.device = prev
 
     def tensor(self, x, dtype: torch.dtype = None) -> torch.Tensor:
         """``x`` (numpy, python scalar or tensor) as a tensor on the

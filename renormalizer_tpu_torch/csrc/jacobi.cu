@@ -68,6 +68,7 @@ constexpr int kGroup = 128;              // threads of one subproblem solver
 constexpr int kGroups = kThreads / kGroup;
 constexpr int kMaxBlocks = 512;          // block-index table: n <= 8192
 constexpr int kMaxCluster = 16;
+constexpr int kMaxDevices = 64;          // device ordinals set up per process
 constexpr int kSlots = 3;                // per CTA: off^2, violation, norm^2
 constexpr int kSolverElems = 4 * kW * kLd + 5 * kB + kW;    // S, S', Q, Q', rotations
 constexpr int kUpdateElems = 2 * kW * kLd4 + 2 * kW * kLd;   // L, Ut, R, X
@@ -517,17 +518,23 @@ size_t smem_bytes() {
 // Returns the size, or minus a CUDA error code.
 template <typename T>
 int cluster_size(int batch, int n) {
-  static bool ready = false;
+  // cudaFuncSetAttribute acts on the current device only: set up once per
+  // device ordinal
+  static bool ready[kMaxDevices] = {};
   const size_t smem = smem_bytes<T>();
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
+  int dev = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st != cudaSuccess) return -(int)st;
+  if (dev < 0 || dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    st = cudaFuncSetAttribute(
         jacobi_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(jacobi_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (err != cudaSuccess) return -(int)err;
-    ready = true;
+    if (st == cudaSuccess)
+      st = cudaFuncSetAttribute(jacobi_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+    if (st != cudaSuccess) return -(int)st;
+    ready[dev] = true;
   }
   const int k = n / kW, jobs = k * (k - 1) / 2 + k * k;
   int cs = (k + kGroups - 1) / kGroups;

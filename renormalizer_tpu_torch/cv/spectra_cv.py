@@ -7,10 +7,11 @@ comes from sweeping a site-local linear solve of
 Liouville-space counterpart (``finitet.py``).
 
 ``batch_run`` never forks: ``cores > 1`` interleaves that many frequency
-sweeps, site update by site update, in one process on the one card (the JAX
-package pins its workers to ``jax.local_devices()``; the port targets
-one card).  Each worker's numbers are those of the serial loop over its
-chunk of frequencies.
+sweeps, site update by site update, in one process.  Worker ``w`` is placed
+on ``_local_devices()[w % n]`` (the visible cards, or the CPU), its copy of
+the solver's tensors there and every step inside ``backend.use_device``, as
+the JAX package pins its workers to ``jax.local_devices()``.  Each worker's
+numbers are those of the serial loop over its chunk of frequencies.
 """
 
 import copy
@@ -19,35 +20,45 @@ import logging
 import numpy as np
 import torch
 
+from renormalizer_tpu_torch.backend import backend
 from renormalizer_tpu_torch.mps import Mpo
+from renormalizer_tpu_torch.parallel.mesh import visible_devices
 from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
 
 logger = logging.getLogger(__name__)
 
 
-class _Worker:
-    """One in-flight chunk of frequency sweeps."""
+def _local_devices():
+    """The devices ``batch_run`` places its workers on: every visible card
+    when the port runs on CUDA, else the backend's device."""
+    return visible_devices() if backend.device.type == "cuda" else [backend.device]
 
-    def __init__(self, solver, omegas, indices):
+
+class _Worker:
+    """One in-flight chunk of frequency sweeps pinned to a device."""
+
+    def __init__(self, solver, omegas, indices, device):
         self.solver = solver
         self.omegas = list(omegas)
         self.indices = list(indices)  # global positions in freq_reg
+        self.device = device
         self.gen = None
         self.current = None
         self.results = []  # (global_index, value)
 
     def step(self) -> bool:
         """Advance one site update; False when the whole chunk is done."""
-        if self.gen is None:
-            if not self.omegas:
-                return False
-            self.current = (self.omegas.pop(0), self.indices.pop(0))
-            self.gen = self.solver._cv_solve_steps(self.current[0])
-        try:
-            next(self.gen)
-        except StopIteration as stop:
-            self.results.append((self.current[1], stop.value))
-            self.gen = None
+        with backend.use_device(self.device):
+            if self.gen is None:
+                if not self.omegas:
+                    return False
+                self.current = (self.omegas.pop(0), self.indices.pop(0))
+                self.gen = self.solver._cv_solve_steps(self.current[0])
+            try:
+                next(self.gen)
+            except StopIteration as stop:
+                self.results.append((self.current[1], stop.value))
+                self.gen = None
         return True
 
 
@@ -55,7 +66,8 @@ def batch_run(freq_reg, cores, obj, filename=None):
     """The CV response over a frequency window.  ``cores`` bounds the
     number of interleaved in-flight frequency sweeps; each takes a
     contiguous chunk of ``freq_reg`` (warm starts stay continuous in omega)
-    and its own copy of ``obj`` (:meth:`SpectraCv.clone_for_batch`)."""
+    and its own copy of ``obj`` (:meth:`SpectraCv.clone_for_batch`) on its
+    own device when several are visible."""
     logger.info(f"{len(freq_reg)} total frequency points to do")
     obj.batch_run = True
     nworkers = max(1, min(int(cores), len(freq_reg)))
@@ -67,12 +79,15 @@ def batch_run(freq_reg, cores, obj, filename=None):
                 np.save(f"{filename}", spectra)
         return spectra
 
-    logger.info(f"{nworkers} interleaved in-process workers")
+    devices = _local_devices()
+    logger.info(f"{nworkers} interleaved in-process workers over "
+                f"{min(nworkers, len(devices))} device(s)")
     workers = []
-    for idx in np.array_split(np.arange(len(freq_reg)), nworkers):
+    for w, idx in enumerate(np.array_split(np.arange(len(freq_reg)), nworkers)):
         if len(idx):
-            workers.append(_Worker(obj.clone_for_batch(),
-                                   [freq_reg[i] for i in idx], idx))
+            device = devices[w % len(devices)]
+            workers.append(_Worker(obj.clone_for_batch(device),
+                                   [freq_reg[i] for i in idx], idx, device))
 
     def _collect():
         return [v for _, v in sorted(p for wk in workers for p in wk.results)]
@@ -193,17 +208,20 @@ class SpectraCv:
         self.hop_time.clear()
         self.macro_iteration_result.clear()
 
-    def clone_for_batch(self) -> "SpectraCv":
-        """An independent copy of this solver for one ``batch_run`` worker."""
+    def clone_for_batch(self, device=None) -> "SpectraCv":
+        """An independent copy of this solver for one ``batch_run`` worker,
+        its tensors on ``device`` (default: the backend's)."""
         new = copy.copy(self)
         new.hop_time = []
         new.macro_iteration_result = []
         new.solve_log = []
         new.batch_run = True
-        for attr in ("cv_mps", "b_mps", "h_mpo", "a_oper"):
-            mp = getattr(new, attr, None)
-            if mp is not None:
-                setattr(new, attr, mp.copy())
+        with backend.use_device(backend.device if device is None else device):
+            for attr in ("cv_mps", "b_mps", "h_mpo", "a_oper"):
+                mp = getattr(new, attr, None)
+                if mp is not None:
+                    # copy() places every site through backend.tensor
+                    setattr(new, attr, mp.copy())
         # subclass aliases (finite temperature names)
         if hasattr(new, "cv_mpo"):
             new.cv_mpo = new.cv_mps

@@ -29,6 +29,8 @@ from renormalizer_tpu_torch.ops.contract import (
     einsum,
     hop_diag,
 )
+from renormalizer_tpu_torch.parallel import hop as phop
+from renormalizer_tpu_torch.parallel.mesh import get_global_mesh
 
 _OUT_OF_SECTOR = 1e10
 
@@ -154,7 +156,16 @@ def davidson_fused(formula: str, operands, cshape, x0_full: torch.Tensor,
     ``cshape``, is zero outside the sector and carries the gauge "largest
     element positive".  Over the workspace budget the trial space shrinks,
     and below the minimal workspace the host-spilled Davidson runs
-    (``niter`` -1)."""
+    (``niter`` -1).
+
+    With a global mesh (``parallel.set_global_mesh``) the matvec is
+    bond-tensor-parallel over the mesh's ``i``/``j`` axes for the local
+    problems whose bond dimensions divide them (``parallel.hop``: the
+    operands are placed once per call, the blocks come home every matvec);
+    the diagonal, the mask, the gauge fix and the spilled path stay
+    unsharded, as in the JAX package.  Its ``_mesh_replicator`` has no
+    counterpart: the sharded hop returns its product on the caller's
+    device, so every result here already lives there."""
     cmo = _two_layer_cmo(operands) if twolayer else list(operands[1:-1])
     hdiag_full = hop_diag(operands[0], operands[-1], cmo, twolayer)
     hdiag = torch.where(mask, hdiag_full.reshape(-1) * inverse, _OUT_OF_SECTOR)
@@ -164,9 +175,16 @@ def davidson_fused(formula: str, operands, cshape, x0_full: torch.Tensor,
         return _davidson_spilled(formula, operands, cshape, x0, hdiag,
                                  inverse, tol, max_cycle)
 
+    mesh = get_global_mesh()
+    sharded = None if mesh is None else phop.sharded_hop_factory(
+        mesh, formula, tuple(tuple(o.shape) for o in operands), cshape)
+    matvec = None if sharded is None else sharded.bind(*operands)
+
     def hop(vec):
         # the MPO and the environments are exactly qn-block-sparse, so H of
         # a masked vector is exactly zero outside the sector
+        if matvec is not None:
+            return matvec(vec) * inverse
         return einsum(formula, *operands, vec.reshape(cshape)).reshape(-1) * inverse
 
     theta, x, it = _davidson_core(hop, x0, hdiag, tol, max_cycle, space)

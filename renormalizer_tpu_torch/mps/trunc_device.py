@@ -36,13 +36,27 @@ blocks masked to the full (m, n) extent with one eigensolver launch
 block (:func:`_per_sector`).  Every index set and mask goes to the device
 through the content-keyed cache :func:`_device_idx`.
 
+With a global mesh over more than one distinct device
+(``parallel.set_global_mesh``; :data:`PLACE_SECTORS`), an update of several
+sectors skips the masked batch and places sector ``k`` on
+``mesh.devices.flat[k % n]``: its
+block, factorization and Gram eigh (the Jacobi kernel on that device) run
+there, and the candidates, lambda and right factor come back to the
+coefficient's device.  The sketches are drawn on that home device from the
+update's one generator, in the same order as without placement, and then
+moved, so placement on and off give bitwise equal results.  Such an update
+has no slot layout, so the asynchronous static plan cannot arm on it (it
+selects from the previous visit's spectrum or the current one).
+
 Differences from the JAX package: the TPU-only 128-lane policies
 (``align_l1p``/``pick_eigh``) are gone, so l1p = min(rank, cap + OVERSAMPLE);
-there is no sector-to-device placement, no per-sector bucketed kernel (the
-per-sector path gathers each block at its own extent: PyTorch compiles
-nothing per shape) and no gather-batched path (above the mask budget the
-per-sector path was 1.5-2.6x faster on the H100: ``gather_probe.py``).  The JAX package's tuning knobs are module constants
-here; only :func:`async_enabled` reads the environment (at call time).
+there is no per-sector bucketed kernel (the per-sector path gathers each
+block at its own extent: PyTorch compiles nothing per shape) and no
+gather-batched path (above the mask budget the per-sector path was
+1.5-2.6x faster on the H100: ``gather_probe.py``).  The JAX package's tuning
+knobs are module constants here; only :func:`async_enabled` reads the
+environment (at call time).  The JAX package's ``RENO_SECTOR_PARALLEL`` is
+not read: whether to place follows from the mesh.
 """
 
 import hashlib
@@ -56,6 +70,7 @@ import torch
 from renormalizer_tpu_torch.backend import backend
 from renormalizer_tpu_torch.mps.svd_qn import _sector_indices
 from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+from renormalizer_tpu_torch.parallel.mesh import get_global_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -96,6 +111,16 @@ SPECTRUM_READS = 0
 SKETCH_RETRIES = 0
 # Hits and misses of the device index cache (:func:`_device_idx`).
 IDX_CACHE_STATS = {"hits": 0, "misses": 0}
+# Sector placement under a global mesh: None places the sectors of an
+# update round-robin over the mesh's devices when it spans more than one
+# distinct device (on a mesh that names one card several times placement
+# buys no parallelism and would stop the static plan from arming); True
+# places them on any mesh of several entries and False never.  Tests and
+# ``chip_smoke.py`` set it with ``setattr``.
+PLACE_SECTORS = None
+# Sectors placed on each mesh device (``str(device) -> count``) by the
+# sector-parallel candidates; ``chip_smoke.py`` phase 16 reads it.
+SECTORS_PLACED = {}
 
 # Which selection path each asynchronous site update took: "static" =
 # plan-constrained, no spectrum read at all; "stale" = the previous visit's
@@ -122,6 +147,17 @@ def async_enabled() -> bool:
     if flag in ("0", "1"):
         return flag == "1"
     return backend.device.type == "cuda"
+
+
+def _sector_devices():
+    """The mesh's devices, flat, when the sectors are to be placed: by
+    default while the global mesh spans more than one distinct device."""
+    mesh = get_global_mesh()
+    if mesh is None or PLACE_SECTORS is False:
+        return None
+    devices = list(mesh.devices.flat)
+    wanted = len(devices) > 1 if PLACE_SECTORS else len(set(devices)) > 1
+    return devices if wanted else None
 
 
 _IDX_CACHE = {}
@@ -211,10 +247,12 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
-def _randn(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+def _randn(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    """Gaussian draws for ``device``, made on the generator's own device
+    and moved: where a sector runs does not change its numbers."""
     # drawn in float32 and cast, as the JAX package draws its sketches
     return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=backend.device).to(dtype)
+                       device=gen.device).to(device=device, dtype=dtype)
 
 
 def _solve_lh(lmat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -301,21 +339,21 @@ def _candidate_core(a: torch.Tensor, mask_a: torch.Tensor,
               < l1_real[:, None])                          # (B, l1p)
     colok_f = col_ok[:, None, :].to(dtype)                 # (B, 1, l1p)
 
-    omega = _randn(gen, (cols, l1p), dtype)
+    omega = _randn(gen, (cols, l1p), dtype, a.device)
     y = _orth(a @ omega)
     y = a @ (a.mH @ y)
     yn = _colnormalize(y)
     # in-sector completion regularizer: below the numerical rank QR
     # completes with junk spread over ALL rows, including rows outside the
     # sector; a tiny in-sector component keeps every completion inside
-    reg = _randn(gen, (rows, l1p), dtype)
+    reg = _randn(gen, (rows, l1p), dtype, a.device)
     yn = yn + reg * (mask_col * finfo.eps ** 0.75)
     q = _orth(yn)
     # re-confine, replace fully-leaked columns with fresh in-sector random
     # columns, then re-orthonormalize by shifted CholeskyQR3
     q = q * mask_col
     colnorm2 = (q.abs() ** 2).sum(-2)                      # (B, l1p)
-    reg2 = _randn(gen, (rows, l1p), dtype) * mask_col
+    reg2 = _randn(gen, (rows, l1p), dtype, a.device) * mask_col
     q = torch.where((colnorm2 < 0.5)[:, None, :], reg2, q) * colok_f
     eye_r = _eye(l1p, q)
     for ipass in range(3):
@@ -357,11 +395,11 @@ def _gram_pass(a, l1, l2, gen):
     (rows x cols): ``l1`` sketched columns and ``l2`` random complement
     columns.  Returns the candidates (rows, l1 + l2) and lam descending."""
     ra, rb = a.shape
-    omega = _randn(gen, (rb, l1), a.dtype)
+    omega = _randn(gen, (rb, l1), a.dtype, a.device)
     y = _orth(a @ omega)
     y = a @ (a.mH @ y)
     if l2 > 0:
-        y = torch.cat([y, _randn(gen, (ra, l2), a.dtype)], dim=1)
+        y = torch.cat([y, _randn(gen, (ra, l2), a.dtype, a.device)], dim=1)
     q = _orth(_colnormalize(y))
     b = q.mH @ a
     g = b @ b.mH
@@ -380,7 +418,7 @@ def _seeded_completion(done: torch.Tensor, need: int, gen) -> torch.Tensor:
     No path of the package calls it since :func:`_resolved_range` became a
     full SVD; ``padding_seed_probe.py --factor svd-floor`` completes below a
     floor with it, to show how such padding moves with the seed."""
-    z = _randn(gen, (done.shape[0], need), done.dtype)
+    z = _randn(gen, (done.shape[0], need), done.dtype, done.device)
     for _ in range(2):
         z = z - done @ (done.mH @ z)
     q, r = _qr(z)
@@ -473,13 +511,16 @@ def _masked_batch(cmat, secs, cap, transpose, gen):
 
 
 def _per_sector(cmat, secs, cap, transpose, want_complement, want_v, gen,
-                resolve=False):
-    """Each sector on its own gathered block (:func:`_sector_candidates`).
-    Returns the candidate parts, the right factors (``None`` each without
-    ``want_v``), lam of all sectors concatenated and each sector's number of
-    slots."""
+                resolve=False, devices=None):
+    """Each sector on its own gathered block (:func:`_sector_candidates`),
+    sector ``k`` on ``devices[k % len(devices)]`` when given, its results
+    brought back to ``cmat``'s device.  Returns the candidate parts, the
+    right factors (``None`` each without ``want_v``), lam of all sectors
+    concatenated and each sector's number of slots."""
+    home = cmat.device
+    cmat_on = {home: cmat}
     parts, parts_v, lams, widths = [], [], [], []
-    for _, lset, rset in secs:
+    for k, (_, lset, rset) in enumerate(secs):
         rank = min(len(lset), len(rset))
         l1 = min(rank, cap + OVERSAMPLE)
         rows = len(rset) if transpose else len(lset)
@@ -487,8 +528,16 @@ def _per_sector(cmat, secs, cap, transpose, want_complement, want_v, gen,
         if want_v:
             # complement candidates beyond the b-side have no right factor
             assert l2 == 0
-        out, lam, out_v = _sector_candidates(cmat, lset, rset, l1, l2,
+        dev = home if devices is None else devices[k % len(devices)]
+        if dev not in cmat_on:
+            cmat_on[dev] = cmat.to(dev)
+        if devices is not None:
+            SECTORS_PLACED[str(dev)] = SECTORS_PLACED.get(str(dev), 0) + 1
+        out, lam, out_v = _sector_candidates(cmat_on[dev], lset, rset, l1, l2,
                                              transpose, want_v, gen, resolve)
+        if dev != home:
+            out, lam = out.to(home), lam.to(home)
+            out_v = None if out_v is None else out_v.to(home)
         parts.append(out)
         parts_v.append(out_v)
         lams.append(lam)
@@ -511,10 +560,11 @@ def candidates(coef_array, qnbigl, qnbigr, qntot, system: str, cap: int,
     :class:`PendingSpectrum` of the device lambda = sigma^2, whose copy to
     the host has started and nothing waits for.
 
-    Without complement or right factor, while ``nsec * m * n * itemsize``
-    fits :data:`MASK_BUDGET`, all sectors run as one masked batch with one
-    eigensolver launch; otherwise each sector runs on its own gathered
-    block.  ``layout`` is ``(nsec_padded, l1p)`` for the batch
+    Without complement, right factor or sector placement
+    (:data:`PLACE_SECTORS` under a mesh), while ``nsec * m * n *
+    itemsize`` fits :data:`MASK_BUDGET`, all sectors run as one masked
+    batch with one eigensolver launch; otherwise each sector runs on its
+    own gathered block, on its mesh device when placed.  ``layout`` is ``(nsec_padded, l1p)`` for the batch
     (sector-major, ``l1p`` slots a sector, each sector's slots by
     descending lambda with the sentinels last) and ``None`` for the
     per-sector path."""
@@ -537,11 +587,14 @@ def candidates(coef_array, qnbigl, qnbigr, qntot, system: str, cap: int,
         return _read_spectrum(lam) if fetch else PendingSpectrum(lam)
 
     secs = [s for s in sectors if min(len(s[1]), len(s[2])) > 0]
+    # several sectors under a mesh: placed one by one (the JAX package's
+    # sector_devs skip its one-dispatch batch too)
+    devices = _sector_devices() if len(secs) > 1 else None
     # the sector axis is padded to a multiple of 2, as the JAX package
     # does; a pad slot has all-zero masks and l1_real = 0, so it reports
     # only sentinels
     nsec_p = -(-len(secs) // 2) * 2
-    if (not want_complement and not want_v
+    if (devices is None and not want_complement and not want_v
             and nsec_p * m * n * cmat.element_size() <= MASK_BUDGET):
         vals, lam, l1p = _masked_batch(cmat, secs, cap, transpose, gen)
         qn_list: List[tuple] = []
@@ -555,7 +608,7 @@ def candidates(coef_array, qnbigl, qnbigr, qntot, system: str, cap: int,
 
     parts, parts_v, lam, widths = _per_sector(cmat, secs, cap, transpose,
                                               want_complement, want_v, gen,
-                                              resolve)
+                                              resolve, devices)
     qn_list = [label(nl) for (nl, _, _), w in zip(secs, widths) for _ in range(w)]
     # ONE small fetch: all candidate spectra at once
     ret = (parts, spectrum(lam), qn_list)

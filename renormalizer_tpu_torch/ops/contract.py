@@ -12,6 +12,17 @@ inside one operand takes that operand's diagonal, as in ``torch.einsum`` of
 the whole formula.  These are plain large products that the JAX package ran
 outside any Pallas kernel.  :func:`einsum_interleaved` takes hashable labels
 (the tree engine's) instead of letters.
+
+The JAX package's ``_harmonize_devices`` (co-locating operands whose
+placements disagree under a mesh) has no counterpart: no mixed placement
+reaches an einsum here.  The sharded hop (``parallel.hop``) hands each
+block einsum operands it placed on that block's own device and brings the
+blocks home before the caller sees them; the sector-parallel truncation
+brings its candidates, spectra and right factors home the same way; and a
+``batch_run`` worker holds all of its tensors on its one device and runs
+inside ``backend.use_device``.  Every site tensor and environment stays on
+the home device (``tests/test_torch_parallel.py`` checks it after a
+sharded sweep).
 """
 
 import string

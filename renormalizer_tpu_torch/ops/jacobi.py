@@ -253,10 +253,12 @@ def _solve_cuda(a: torch.Tensor, sweeps: int):
     resid = torch.empty((bsz,), dtype=a.dtype, device=a.device)
     nsweeps = torch.empty((bsz,), dtype=torch.int32, device=a.device)
     work = torch.empty((bsz, _workspace_size(n)), dtype=a.dtype, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), v.data_ptr(), w.data_ptr(), resid.data_ptr(),
-             nsweeps.data_ptr(), work.data_ptr(), bsz, n, int(sweeps),
-             int(sweeps) + MAX_EXTRA_SWEEPS, stream)
+    # the launch goes to the current device: make it the tensor's
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), v.data_ptr(), w.data_ptr(), resid.data_ptr(),
+                 nsweeps.data_ptr(), work.data_ptr(), bsz, n, int(sweeps),
+                 int(sweeps) + MAX_EXTRA_SWEEPS, stream)
     if err != 0:
         raise RuntimeError(f"jacobi_eigh kernel launch failed: CUDA error {err}")
     jacobi_eigh.launches += 1

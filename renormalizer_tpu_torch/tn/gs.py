@@ -6,8 +6,10 @@ eigenproblem solved in the qn-masked full local space by the port's Davidson
 (``davidson``; several roots: the block ``davidson_multiroot``), scipy's
 ``eigsh`` over the device matvec (``algo="arpack"``) or a dense eigh in
 double precision (``"direct"``, ``eigh_wide``), then truncated by
-``TTNS.update_2site`` (the Jacobi kernel).  The JAX package's global-mesh
-branch (the sharded tree matvec) is not carried.
+``TTNS.update_2site`` (the Jacobi kernel).  With a global mesh
+(``parallel.set_global_mesh``) the 2-site matvec is sharded over two free
+bra axes of the environments (``parallel.hop.sharded_general_hop_factory``)
+where their dimensions divide the mesh axes, as in the JAX package.
 """
 
 import logging
@@ -18,7 +20,10 @@ import torch
 
 from renormalizer_tpu_torch.backend import backend, np_dtype
 from renormalizer_tpu_torch.lib.solvers import davidson, davidson_multiroot, eigh_wide
-from renormalizer_tpu_torch.tn.hop_expr import hop_expr2
+from renormalizer_tpu_torch.ops.contract import einsum
+from renormalizer_tpu_torch.parallel import hop as phop
+from renormalizer_tpu_torch.parallel.mesh import get_global_mesh
+from renormalizer_tpu_torch.tn.hop_expr import hop_formula2
 from renormalizer_tpu_torch.tn.node import TreeNodeTensor
 from renormalizer_tpu_torch.tn.tree import TTNEnviron, TTNO, TTNS
 
@@ -73,8 +78,22 @@ def optimize_2site(snode: TreeNodeTensor, ttns: TTNS, ttno: TTNO, ttne: TTNEnvir
     cguess = ttns.merge_with_parent(snode)
     qn_mask = ttns.get_qnmask(snode, include_parent=True)
     mask_flat = backend.tensor(qn_mask.ravel())
-    expr, hdiag = hop_expr2(snode, ttns, ttno, ttne)
+    formula, operands, hdiag = hop_formula2(snode, ttns, ttno, ttne)
     cshape = qn_mask.shape
+
+    # bond-tensor-parallel tree matvec: with a global mesh, shard two
+    # divisible free bra axes (child and parent environments) over i/j
+    mesh = get_global_mesh()
+    sharded = None if mesh is None else phop.sharded_general_hop_factory(
+        mesh, formula, tuple(tuple(o.shape) for o in operands), cshape)
+    if sharded is None:
+        def expr(c):
+            return einsum(formula, *operands, c)
+    else:
+        matvec = sharded.bind(*operands)
+
+        def expr(c):
+            return matvec(c.reshape(-1)).reshape(cshape)
 
     def hop(x):
         x = torch.where(mask_flat, x, 0)

@@ -4,8 +4,9 @@ Port of ``renormalizer_tpu/tn/hop_expr.py`` (reference
 ``renormalizer/tn/hop_expr.py:10-135``).  The index-label scheme is shared
 with ``tn.tree``; each matvec closure maps its labels to an einsum formula
 once and then runs the pairwise einsum, whose plan is cached per (formula,
-shapes).  ``hop_formula2`` of the JAX package serves only its sharded mesh
-hop and is not carried.
+shapes).  :func:`hop_formula2` gives the 2-site matvec as an einsum
+``(formula, operands)`` pair for the sharded mesh hop
+(``parallel.hop.sharded_general_hop_factory``).
 """
 
 from renormalizer_tpu_torch.ops.contract import einsum, einsum_interleaved, label_formula
@@ -95,13 +96,22 @@ def _expr2_args(snode: TreeNodeTensor, ttns: TTNS, ttno: TTNO, ttne: TTNEnviron)
     return args, input_indices, output_indices
 
 
+def hop_formula2(snode: TreeNodeTensor, ttns: TTNS, ttno: TTNO, ttne: TTNEnviron):
+    """The two-site (node + parent) effective-H matvec as a standard einsum
+    ``(formula, operands)`` pair, and its diagonal: the form the
+    bond-tensor-parallel mesh factory
+    (``parallel.hop.sharded_general_hop_factory``) shards.  The local (ket)
+    tensor is the LAST term of the formula and not among the operands."""
+    args, input_indices, output_indices = _expr2_args(snode, ttns, ttno, ttne)
+    formula = label_formula(list(args[1::2]) + [input_indices], output_indices)
+    return formula, list(args[0::2]), _get_hdiag(args, input_indices)
+
+
 def hop_expr2(snode: TreeNodeTensor, ttns: TTNS, ttno: TTNO, ttne: TTNEnviron):
     """Two-site (node + parent) effective Hamiltonian and its diagonal
     (reference ``tn/hop_expr.py:76-113``)."""
-    args, input_indices, output_indices = _expr2_args(snode, ttns, ttno, ttne)
-    expr = _make_expr(args, input_indices, output_indices)
-    hdiag = _get_hdiag(args, input_indices)
-    return expr, hdiag
+    formula, operands, hdiag = hop_formula2(snode, ttns, ttno, ttne)
+    return (lambda x: einsum(formula, *operands, x)), hdiag
 
 
 def _is_conj_label(label) -> bool:

@@ -205,3 +205,66 @@ def test_offload_round_trip_keeps_layout(cuda):
     store["a"], store["b"] = x, x + 1
     assert store.n_evicted == 1 and store._data["a"].is_pinned()
     assert torch.equal(store["a"], x) and store.n_restored == 1
+
+
+@pytest.mark.cuda
+def test_jacobi_kernel_on_every_visible_device(cuda):
+    """One launch on each visible card, made while another card is the
+    current one: the kernel runs where its tensor lies and matches the plain
+    version there (the one-time attribute setup is per device)."""
+    a_host = _symmetric_stack(7, 2, 96)
+    for k in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", k)
+        a = torch.tensor(a_host, dtype=torch.float32, device=dev)
+        before = jacobi_eigh.launches
+        with torch.cuda.device((k + 1) % torch.cuda.device_count()):
+            w, v = jacobi_eigh(a)
+        w_p, _ = jacobi_eigh_reference(a)
+        assert jacobi_eigh.launches == before + 1
+        assert w.device == dev and v.device == dev
+        norm = float(torch.linalg.matrix_norm(a).min())
+        assert float((w - w_p).abs().max()) < 2e-5 * norm
+
+
+@pytest.mark.cuda
+def test_mesh_hop_and_sector_placement_on_the_card(cuda, monkeypatch):
+    """A (1, 2, 2) mesh on the card (four cards when visible, else one named
+    four times): the sharded 2-site hop equals the unsharded einsum, and the
+    truncation's sectors placed over the mesh give bitwise the candidates
+    of no placement."""
+    from renormalizer_tpu_torch import parallel as par
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.ops.contract import einsum
+
+    n = torch.cuda.device_count()
+    devices = [torch.device("cuda", k % n) for k in range(4)] if n >= 4 else [cuda] * 4
+    mesh = par.make_mesh(i=2, j=2, devices=devices)
+    rng = np.random.default_rng(0)
+    formula = "abc,bdef,fghj,ljk,cehk->adgl"
+    ops = [torch.tensor(rng.standard_normal(s), device=cuda) for s in
+           ((64, 5, 64), (5, 3, 3, 5), (5, 3, 3, 5), (64, 5, 64))]
+    x = torch.tensor(rng.standard_normal((64, 3, 3, 64)), device=cuda)
+    hop = par.sharded_hop_factory(mesh, formula, tuple(o.shape for o in ops), x.shape)
+    out = hop(*ops, x.reshape(-1))
+    assert out.device == x.device
+    ref = einsum(formula, *ops, x).reshape(-1)
+    assert float((out - ref).abs().max()) < 1e-10 * float(ref.abs().max())
+
+    monkeypatch.setattr(trunc_device, "MASK_BUDGET", 0)
+    qnl = np.repeat(np.array([[0], [1], [2]]), [40, 60, 28], axis=0)
+    qnr = np.repeat(np.array([[2], [1], [0]]), [32, 56, 40], axis=0)
+    c = rng.standard_normal((len(qnl), len(qnr))).astype(np.float32)
+    c = c * ((qnl[:, None, 0] + qnr[None, :, 0]) == 2)
+    coef = torch.tensor(c, device=cuda)
+    par.set_global_mesh(mesh)
+    try:
+        runs = []
+        for flag in (False, True):
+            monkeypatch.setattr(trunc_device, "PLACE_SECTORS", flag)
+            runs.append(trunc_device.candidates(coef, qnl, qnr, np.array([2]), "L", 32,
+                                                want_complement=False))
+    finally:
+        par.set_global_mesh(None)
+    (p0, s0, q0), (p1, s1, q1) = runs
+    assert q0 == q1 and np.array_equal(s0, s1)
+    assert all(a.device == coef.device and torch.equal(a, b) for a, b in zip(p0, p1))
