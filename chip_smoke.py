@@ -20,8 +20,9 @@ Phases (any failure exits non-zero):
      (1, 160, 160), (2, 64, 64), (2, 96, 96)), f32, the kernel, the plain
      version and torch.linalg.eigh timed in turns, the sweeps each timed
      solve took, and the kernel's bound (the plain version in one call per
-     shape, without a warm-up: seconds a call at the widest shapes, no
-     yardstick); phase 12's shapes are also held against the plain version;
+     shape, without a warm-up, and not at the widest shapes PLAIN_UNTIMED:
+     seconds a call, no yardstick); phase 12's shapes are also held against
+     the plain version;
   4. main path: 2-site DMRG of the 6-molecule Holstein chain (18 sites) at
      M=256 in fp32, through Mps.random / Mpo / optimize_mps; the energy must be
      within 1e-6 of 0.11503887 and the truncation's Gram eigh must have gone
@@ -76,7 +77,7 @@ Phases (any failure exits non-zero):
      SpectralFunctionZT on the 4-cell TI1DModel ring (G(0) within 1e-5 of
      -i delta_ij) and the band-limit ChargeDiffusionDynamics (r^2 within
      1e-3 of 2 J^2 t^2); at full width on the bench chain (18 sites, fixed
-     M=64, one first and three timed steps) (b) ChargeDiffusionDynamics at
+     M=64, one first and two timed steps) (b) ChargeDiffusionDynamics at
      T=0 from the relaxed start with MU-VMF, dt 1 a.u. (a step of 20 a.u.
      takes ~4500 right-hand sides, ~13 minutes, on the H100), and (c) with
      TDVP-PS2, dt 20 a.u.: norm within NORM_TOL, occupations summing to 1 within
@@ -86,7 +87,7 @@ Phases (any failure exits non-zero):
      MU-VMF in imaginary time and a Property collector (e_rdm and
      e_ph_static_correlation): two TDVP-PS steps of beta/20 (from the freshly
      expanded state MU-VMF stalls: its RKF45 step fell to ~1e-7 a.u. within
-     0.015 a.u.), then one first and two timed MU-VMF steps of beta/100: the
+     0.015 a.u.), then one first and one timed MU-VMF step of beta/100: the
      Jacobi kernel inside the time loop, every launch recorded (none at the
      sweep cap, every shape in THERMAL_PATH_GRAMS, every Gram solved again by
      torch.linalg.eigh inside phase 3's f32 tolerances), launches per step
@@ -190,11 +191,30 @@ Phases (any failure exits non-zero):
      and with the mesh in alternated order (unsharded, sharded, sharded,
      unsharded), every sweep run: each within E_TOL, the median of the last
      five sweeps of each run and their ratios printed.
+ 17. the package's own examples (examples/*.py, read as text, their
+     renormalizer_tpu imports rewritten to the port by
+     renormalizer_tpu_torch.run_examples; never imported): (a) the eight
+     with references, in this process through run_example on the card in
+     the default fp32 (hubbard.py in fp64, EXAMPLES_FP64: it asserts its
+     energy within 1e-6, below fp32's reach), each under a GramRecord
+     (every Jacobi launch recorded, none at the sweep cap, the shapes phase
+     3 did not hold held against the plain version; launches_by_path example_<name> for each
+     example that launches the kernel, at least holstein_gs): the numbers
+     each prints against the JAX package's fp64 CPU run (EXAMPLE_REFS:
+     holstein_gs's last sweep energy 1e-5, qc_dmrg 1e-4, the tree DMRG
+     energy 1e-5, hubbard and ssh 1e-5 max(1, |E|), both sigma_z(t) series
+     1e-3 at every sample, the DDMRG responses 1e-3 relative), the port's
+     device printed and required to be cuda; (b) fmo.py, which has no
+     reference, last, in a child process through the runner, fp32 then
+     fp64, each within FMO_TIMEOUT: its BChl populations' rows sum to 1,
+     every entry in [0, 1], the first row BChl 1 alone (FMO_TOL), the fp32
+     final row within FMO_FP32_TOL of the fp64 one.
 A [summary] line repeats the run's times as JSON, so that the end of the
 output carries them, with the seconds of each phase and of the whole script.  The line before the last holds the kernel record as
 JSON (with the launches of each path: DMRG, SpinBosonDynamics,
 TransportKubo, ChargeDiffusionDynamics, the MU-VMF ThermalProp,
-state-averaged DMRG, SpectraZtCV, QC-DMRG, tree DMRG, phase 15's); the last
+state-averaged DMRG, SpectraZtCV, QC-DMRG, tree DMRG, phase 15's, 16's
+and 17's examples); the last
 line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
@@ -218,13 +238,18 @@ phases 1, 2, 4 and 15 (no result line), and
     python3 chip_smoke.py --mesh [--profile]
 
 phases 1, 2, 4 and 16 (no result line; with --profile 16(a) runs under
-the profiler, as does the full run's 16(a) with --profile).
+the profiler, as does the full run's 16(a) with --profile), and
+
+    python3 chip_smoke.py --examples
+
+phases 1, 2 and 17 (no result line).
 """
 
 import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -362,6 +387,57 @@ OFFLOAD_RTOL = 1e-8
 # unit in the last place), set here to 1e-6
 TREE_BOUNDS = dict(evolve=1e-4, nroots=1e-6, thermofield_occupation=1e-6,
                    thermofield_energy=1e-4, thermofield_norm=1e-6, from_mps=1e-6)
+# phase 17: the numbers the package's examples print, against fp64
+# references printed by the JAX package's own examples/*.py, run unmodified
+# on the CPU (JAX_PLATFORMS=cpu RENO_DTYPE=fp64) from a copy outside the
+# tests.
+# Each entry: the label the number follows, which numbers of the bracket or
+# line are compared ("last", "first" or "all"), the reference, the
+# tolerance and its scale ("abs"; "max1": times max(1, |E|); "rel": times
+# |reference|)
+EXAMPLE_REFS = {
+    "holstein_gs.py": ("sweep energies:", "last", (0.09524617585657086,), 1e-5, "abs"),
+    # within phase 13(b)'s fp32 QC bound
+    "qc_dmrg.py": ("E(DMRG) =", "first", (-1.4990925922996068,), 1e-4, "abs"),
+    "ttns_mctdh.py": ("tree DMRG energy:", "first", (0.08671799387880011,), 1e-5, "abs"),
+    "hubbard.py": ("GS energy:", "first", (-3.09256532,), 1e-5, "max1"),
+    "ssh.py": ("polaron GS energy", "first", (-1.95243584,), 1e-5, "max1"),
+    "sbm_dynamics.py": ("sigma_z(t):", "all", (
+        1.0, 0.9280827123363344, 0.7229138054151647, 0.41467419490226437,
+        0.04867269541581348, -0.3213602832795962, -0.6412181223473458,
+        -0.8642238162835435, -0.9581115609180533, -0.9097681536726996,
+        -0.7271357377638008, -0.43799682727008926, -0.08582285020439484,
+        0.2766983316209004, 0.5954961329261611, 0.8231494196175538,
+        0.925923903077592, 0.8887689690097615, 0.7175319253948893,
+        0.4380621713118031, 0.09234073078987631), 1e-3, "abs"),
+    # printed rounded to 4 decimals by the example itself
+    "ttns_sbm.py": ("sigma_z(t):", "all", (
+        0.9801, 0.9213, 0.8264, 0.6992, 0.5449, 0.3698, 0.1809, -0.0145, -0.2085,
+        -0.3936), 1e-3, "abs"),
+    "absorption_spectrum.py": ("DDMRG response:", "all", (
+        39.792704439405206, 15.91879742452164, 7.9588920988497, 4.6819205635274175,
+        2.6529866472098282), 1e-3, "rel"),
+}
+# examples run in fp64 on the card (backend.use_64bits for their run): the
+# example asserts more than fp32 resolves.  hubbard.py asserts its energy
+# within 1e-6 of exact diagonalization; in fp32 the port's DMRG lands
+# 1.65e-6 below (-3.09256697 on the CPU), and on an H100 in fp32 the
+# example's assert fails as well
+EXAMPLES_FP64 = ("hubbard.py",)
+# fmo.py has no reference (the JAX package's run did not finish): it runs in
+# a child process through the examples runner in fp32 and in fp64, each
+# within its limit (seconds), and its BChl populations are checked: rows sum
+# to 1 and entries lie in [0, 1] within FMO_TOL, the first row is BChl 1
+# alone, the fp32 final row within FMO_FP32_TOL of the fp64 one.  The limits
+# are about 3.5x the first card run's 34.6 s (fp32) and 33.8 s (fp64),
+# the child process's start included (NVIDIA H100 80GB HBM3, 700 W)
+FMO_TIMEOUT = {"fp32": 120, "fp64": 120}
+FMO_TOL = 1e-4
+FMO_FP32_TOL = 2e-3
+# phase 3 times the plain version at every timed shape but these, the
+# widest, where one call took 7.3-29.2 s on an H100: each is held
+# against the plain version all the same
+PLAIN_UNTIMED = ((1, 544, 544), (1, 384, 384), (2, SKETCH_GRAM, SKETCH_GRAM))
 # phase 3's tolerances relative to ||A||_F: eigenvalues, |V^T V - I|,
 # |AV - VL| (f32 ones grow as n / 288 past n = 288)
 TOL_F32 = dict(eig=1e-5, orth=1e-4, resid=1e-4)
@@ -602,23 +678,26 @@ def phase_kernels():
                        else np.random.default_rng(10 * shape[-1] + shape[0] - 1),
                        shape, torch.float32)
         plain_out = []
+        fns = {"kernel": lambda: jacobi_eigh(a),
+               "torch.linalg.eigh": lambda: torch.linalg.eigh(a)}
         # the plain version is timed in one call, without a warm-up: it is
-        # seconds a call at the widest shapes and no yardstick
-        ms = cuda_times_in_turns({
-            "kernel": lambda: jacobi_eigh(a),
-            "torch.linalg.eigh": lambda: torch.linalg.eigh(a),
-            "plain": lambda: plain_out.append(
-                jacobi_eigh_reference(a, return_sweeps=True))},
-            {"kernel": 10, "torch.linalg.eigh": 10, "plain": 1},
-            warm=("kernel", "torch.linalg.eigh"))
+        # seconds a call and no yardstick; at the widest shapes (held
+        # against it above) it is not timed at all
+        if shape not in PLAIN_UNTIMED:
+            fns["plain"] = lambda: plain_out.append(
+                jacobi_eigh_reference(a, return_sweeps=True))
+        ms = cuda_times_in_turns(fns, {"kernel": 10, "torch.linalg.eigh": 10, "plain": 1},
+                                 warm=("kernel", "torch.linalg.eigh"))
+        ms.setdefault("plain", None)
         sweeps = jacobi_eigh(a, return_sweeps=True)[2].tolist()
-        sweeps_p = plain_out[0][2].tolist()
+        sweeps_p = plain_out[0][2].tolist() if plain_out else []
         capped = sum(s >= cap for s in sweeps + sweeps_p)
         bound, bound_by = jacobi_bound_ms(shape[0], shape[-1], 4)
+        plain_ms = "not timed" if ms["plain"] is None else f"{ms['plain']:.3f}"
         print(f"[kernel] {shape} f32 median ms: kernel {ms['kernel']:.3f} "
-              f"plain {ms['plain']:.3f} torch.linalg.eigh "
+              f"plain {plain_ms} torch.linalg.eigh "
               f"{ms['torch.linalg.eigh']:.3f}; sweeps kernel {sweeps} plain "
-              f"{sweeps_p} (cap {cap}), {capped} timed solves at the cap; "
+              f"{sweeps_p or 'not run'} (cap {cap}), {capped} timed solves at the cap; "
               f"bound {bound:.6f} ms ({bound_by})", flush=True)
         check(capped == 0, f"{shape}: {capped} timed solves ran to the sweep cap")
         timed[shape] = dict(ms, bound_ms=bound, bound_by=bound_by)
@@ -3276,6 +3355,140 @@ def phase_mesh(card, gram_tol, main, profile=False):
                  second_device_launch=second, alternated=alternated))
 
 
+_NUMBER = re.compile(r"(?<![\w.])[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?")
+
+
+def _printed_numbers(text, label, pick):
+    """The numbers an example printed after its last ``label``: those of
+    the bracket that follows (it may span lines; ``np.float64(x)`` counts
+    as x) or, without a bracket on the label's line, of the rest of that
+    line; ``pick`` keeps the first, the last or all of them."""
+    at = text.rfind(label)
+    check(at >= 0, f"the example printed no {label!r}")
+    rest = text[at + len(label):]
+    line = rest.split("\n", 1)[0]
+    body = rest[rest.index("["):rest.index("]")] if "[" in line else line
+    found = [float(x) for x in _NUMBER.findall(body)]
+    check(found, f"no number after {label!r}")
+    return {"first": found[:1], "last": found[-1:], "all": found}[pick]
+
+
+def _check_example(tag, text, spec):
+    """Hold the numbers an example printed against EXAMPLE_REFS's entry;
+    returns the largest deviation in units of the tolerance's scale."""
+    label, pick, ref, tol, scale = spec
+    got = _printed_numbers(text, label, pick)
+    check(len(got) == len(ref), f"{tag} printed {len(got)} numbers, "
+          f"the reference has {len(ref)}")
+    devs = []
+    for g, r in zip(got, ref):
+        unit = {"abs": 1.0, "max1": max(1.0, abs(r)), "rel": abs(r)}[scale]
+        devs.append(abs(g - r) / unit)
+    worst = max(devs)
+    print(f"{tag} {label} {got if len(got) <= 4 else got[:2] + ['...'] + got[-2:]}; "
+          f"largest deviation from the fp64 reference {worst:.3e}"
+          f"{'' if scale == 'abs' else ' (' + scale + ')'} (bound {tol:.0e})",
+          flush=True)
+    check(worst <= tol, f"{tag} {worst:.3e} off the reference (bound {tol:.0e})")
+    return worst
+
+
+def phase_examples_in_process(card, gram_tol):
+    """Phase 17(a): the eight examples with references, in this process
+    through run_examples.run_example on the card in the default precision
+    (EXAMPLES_FP64 in fp64), each under a GramRecord: every Jacobi launch recorded (none at the sweep
+    cap; the shapes phase 3 did not hold held against the plain version),
+    the printed numbers against EXAMPLE_REFS."""
+    import torch
+
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
+    from renormalizer_tpu_torch.run_examples import EXAMPLES, run_example
+
+    print(f"[examples] port device {backend.device}, "
+          f"fp{32 if backend.is_32bits else 64} ({card})", flush=True)
+    check(backend.device.type == "cuda", f"[examples] port device is {backend.device}")
+    held = phase3_held()
+    launches, seconds, devs = {}, {}, {}
+    for name, spec in EXAMPLE_REFS.items():
+        tag = f"[examples a] {name}"
+        grams = GramRecord(keep_grams=True)
+        trunc_device.jacobi_eigh = grams
+        was_32 = backend.is_32bits
+        if name in EXAMPLES_FP64:
+            backend.use_64bits()
+        try:
+            launches0 = jacobi_eigh.launches
+            text, secs = run_example(os.path.join(EXAMPLES, name))
+            torch.cuda.synchronize()
+            n = jacobi_eigh.launches - launches0
+        finally:
+            trunc_device.jacobi_eigh = jacobi_eigh
+            (backend.use_32bits if was_32 else backend.use_64bits)()
+        check(backend.device.type == "cuda", f"{tag} left the port on {backend.device}")
+        print(f"{tag}: fp{64 if name in EXAMPLES_FP64 else 32 if was_32 else 64}, "
+              f"{secs:.2f} s, jacobi launches {n}", flush=True)
+        devs[name] = _check_example(tag, text, spec)
+        _check_held(tag, grams, n, held, gram_tol)
+        seconds[name] = round(secs, 3)
+        if n:
+            launches["example_" + name[:-len(".py")]] = n
+    check("example_holstein_gs" in launches,
+          "[examples a] holstein_gs.py never launched the Jacobi kernel")
+    return launches, dict(seconds=seconds, deviations={k: f"{v:.3e}" for k, v in devs.items()})
+
+
+def phase_fmo():
+    """Phase 17(b): fmo.py in a child process through the examples runner,
+    fp32 (the card's default) then fp64, each within FMO_TIMEOUT: the BChl
+    populations' rows sum to 1, every entry in [0, 1] (both within
+    FMO_TOL), the first row BChl 1 alone, and the fp32 final row within
+    FMO_FP32_TOL of the fp64 one.  Running out of time fails the phase."""
+    import tempfile
+
+    import numpy as np
+
+    from renormalizer_tpu_torch.run_examples import EXAMPLES, run_in_subprocess
+
+    rows, seconds = {}, {}
+    for prec in ("fp32", "fp64"):
+        tag = f"[examples b] fmo.py {prec}"
+        with tempfile.TemporaryDirectory(prefix="fmo_") as tmp:
+            res = run_in_subprocess(os.path.join(EXAMPLES, "fmo.py"), FMO_TIMEOUT[prec],
+                                    env={"RENO_DTYPE": prec},
+                                    dump=os.path.join(tmp, "numbers.json"))
+        print(f"{tag}: {res['status']} in {res['seconds']:.2f} s "
+              f"(limit {FMO_TIMEOUT[prec]} s)", flush=True)
+        check(res["status"] == "ok",
+              f"{tag} {res['status']}: {res['output'][-4000:]}")
+        numbers = res["numbers"]
+        occ = np.asarray(numbers["occ"], dtype=float)
+        bchl = occ[:, np.argsort(numbers["PERM"])]
+        sums = np.abs(bchl.sum(axis=1) - 1).max()
+        first = np.abs(bchl[0] - np.eye(7)[0]).max()
+        print(f"{tag}: {len(bchl)} rows; largest |row sum - 1| {sums:.3e}, entries in "
+              f"[{bchl.min():.3e}, {bchl.max():.6f}], first row off BChl 1 alone by "
+              f"{first:.3e}; final row {np.round(bchl[-1], 6).tolist()}", flush=True)
+        check(sums < FMO_TOL, f"{tag} a row sums {sums:.3e} off 1")
+        check(bchl.min() >= -FMO_TOL and bchl.max() <= 1 + FMO_TOL,
+              f"{tag} an entry outside [0, 1]")
+        check(first < FMO_TOL, f"{tag} the first row is not BChl 1 alone")
+        rows[prec], seconds[prec] = bchl[-1], round(res["seconds"], 2)
+    diff = float(np.abs(rows["fp32"] - rows["fp64"]).max())
+    print(f"[examples b] fmo.py final row fp32 - fp64: {diff:.3e} "
+          f"(bound {FMO_FP32_TOL:.0e})", flush=True)
+    check(diff < FMO_FP32_TOL, f"[examples b] fmo fp32 final row {diff:.3e} off fp64")
+    return dict(seconds=seconds, fp32_fp64_final_row=f"{diff:.3e}")
+
+
+def phase_examples(card, gram_tol):
+    """Phase 17: the package's examples on the card, (a) and (b)."""
+    launches, run = phase_examples_in_process(card, gram_tol)
+    run["fmo"] = phase_fmo()
+    return launches, run
+
+
 def phase_profile_step(card, tag, step):
     """Phase 7: one more evolution step (``step()``) under torch.profiler."""
     import torch
@@ -3412,6 +3625,18 @@ def main():
         print(f"[mesh] phases 1, 2, 4 and 16 passed in "
               f"{time.perf_counter() - _T0:.1f} s", flush=True)
         return
+    if "--examples" in sys.argv[1:]:
+        # phases 1, 2 and 17 alone; no kernel record and no result line
+        _, card = phase_environment()
+        phase_build()
+        t0 = time.perf_counter()
+        example_launches, examples_s = phase_examples(card, TOL_F32)
+        print("[examples] " + json.dumps(dict(examples_s, launches=example_launches,
+                                              phase_seconds=round(time.perf_counter() - t0, 1))),
+              flush=True)
+        print(f"[examples] phases 1, 2 and 17 passed in "
+              f"{time.perf_counter() - _T0:.1f} s", flush=True)
+        return
     phase_s = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -3438,8 +3663,10 @@ def main():
     kubo_launches, thermal_s, kubo_s = timed("9", phase_kubo, card, profile,
                                              record["tol_f32"])
     timed("10a", phase_vmf_oracles)
+    # depth cut to make room for phase 17 (was 1 + 3 steps of (b),
+    # (c) and 1 + 2 of (d)): 1 + 2 and 1 + 1 (first + timed), at full width
     vmf_launches, vmf_s = timed("10b-d", phase_vmf_jobs, card, profile, record["tol_f32"],
-                                dts={"b": 1.0, "c": 20.0})
+                                dts={"b": 1.0, "c": 20.0}, nsteps=3, thermal_steps=2)
     timed("11", phase_excited_oracles)
     excited_launches, excited_s = timed("12", phase_excited_jobs, card, record["tol_f32"])
     qc_launches, qc_s = timed("13", phase_qc, card, record["tol_f32"])
@@ -3447,6 +3674,7 @@ def main():
     hide_launches, hide_s = timed("15", phase_hide, card, record["tol_f32"])
     mesh_launches, mesh_s = timed("16", phase_mesh, card, record["tol_f32"], main_run,
                                   profile)
+    example_launches, examples_s = timed("17", phase_examples, card, record["tol_f32"])
     steady = record["timed"][(2, 288, 288)]
     # the numbers of this run once more, so that the end of the output
     # carries them when its beginning is cut
@@ -3482,17 +3710,20 @@ def main():
         "tree_oracles": {k: f"{v:.3e}" for k, v in tree_s["oracles"].items()},
         "host_hiding": hide_s,
         "mesh": mesh_s,
+        "examples": examples_s,
         "jacobi_ms": {str(k): round(v["kernel"], 3)
                       for k, v in record["timed"].items()},
         "eigh_ms": {str(k): round(v["torch.linalg.eigh"], 3)
                     for k, v in record["timed"].items()},
-        "plain_ms": {str(k): round(v["plain"], 3) for k, v in record["timed"].items()},
+        "plain_ms": {str(k): round(v["plain"], 3) for k, v in record["timed"].items()
+                     if v["plain"] is not None},
         "phase_seconds": phase_s,
         "script_seconds": round(time.perf_counter() - _T0, 1)}), flush=True)
     by_path = {"dmrg": launches, "spin_boson_dynamics": evolve_launches,
                "transport_kubo": kubo_launches, **vmf_launches, **excited_launches,
                "qc": qc_launches["fp64"] + qc_launches["fp32"],
-               "tree_dmrg": tree_launches, **hide_launches, **mesh_launches}
+               "tree_dmrg": tree_launches, **hide_launches, **mesh_launches,
+               **example_launches}
     print(f"[kernels] jacobi_eigh launches: DMRG path {launches}, "
           f"SpinBosonDynamics constructor {evolve_launches}, TransportKubo "
           f"constructor {kubo_launches}, ChargeDiffusionDynamics (b)-(c) "
@@ -3501,7 +3732,8 @@ def main():
           f"{excited_launches['state_averaged_dmrg']}, SpectraZtCV (12b) "
           f"{excited_launches['cv_zerot']}, H2O QC-DMRG (13a fp64 + 13b fp32) "
           f"{qc_launches['fp64']} + {qc_launches['fp32']}, tree DMRG (14a) "
-          f"{tree_launches}, phase 15 {hide_launches}, phase 16 {mesh_launches}",
+          f"{tree_launches}, phase 15 {hide_launches}, phase 16 {mesh_launches}, "
+          f"phase 17 {example_launches}",
           flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{

@@ -18,7 +18,14 @@ from renormalizer_tpu_torch.backend import backend
 from renormalizer_tpu_torch.utils import log
 
 from renormalizer_tpu_torch.model import (
+    BasisDummy,
     BasisHalfSpin,
+    BasisHopsBoson,
+    BasisMultiElectron,
+    BasisMultiElectronVac,
+    BasisSHO,
+    BasisSimpleElectron,
+    BasisSineDVR,
     HolsteinModel,
     Model,
     Mol,

@@ -18,6 +18,8 @@ computes lives on one ``torch.device`` held here:
 * :meth:`Backend.use_device` points the backend at another device for a
   scope (``cv.spectra_cv.batch_run``'s workers, one per visible card), the
   counterpart of ``jax.default_device``.
+* :meth:`Backend.use_32bits` / :meth:`Backend.use_64bits` switch the
+  working precision after import, as in the JAX package.
 """
 
 import contextlib
@@ -53,6 +55,18 @@ def _decide_device() -> torch.device:
     raise ValueError(f"RENO_PLATFORM={platform!r}: expected 'cpu' or 'cuda'")
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with an unindexed CUDA device
+    resolved to the current card: ``torch.device("cuda")`` and
+    ``torch.device("cuda:0")`` compare unequal although they name one
+    card, so sets of devices (the mesh's distinct devices) and cache keys
+    take the indexed form."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _decide_dtype_bits(device: torch.device) -> int:
     env = os.environ.get("RENO_DTYPE", "").lower()
     if env in ("fp64", "64", "float64"):
@@ -81,12 +95,29 @@ class Backend:
         return self._bits == 32
 
     @property
+    def is_accelerator(self) -> bool:
+        """True when the backend device is a CUDA card."""
+        return self.device.type == "cuda"
+
+    @property
     def real_dtype(self) -> torch.dtype:
         return torch.float32 if self._bits == 32 else torch.float64
 
     @property
     def complex_dtype(self) -> torch.dtype:
         return torch.complex64 if self._bits == 32 else torch.complex128
+
+    def use_32bits(self):
+        """Switch the working precision to fp32 / complex64.  Tensors built
+        before the switch keep their dtype, as arrays do in the JAX package;
+        ``canonical_atol``/``canonical_rtol`` keep their import-time values
+        (the JAX package's switch leaves them too)."""
+        self._bits = 32
+
+    def use_64bits(self):
+        """Switch the working precision to fp64 / complex128 (see
+        :meth:`use_32bits`)."""
+        self._bits = 64
 
     @property
     def seed(self) -> int:
@@ -105,7 +136,7 @@ class Backend:
         :meth:`generator` and the truncation's index caches) is ``device``,
         and so is the current CUDA device."""
         prev = self.device
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         try:
             if self.device.type == "cuda":
                 with torch.cuda.device(self.device):

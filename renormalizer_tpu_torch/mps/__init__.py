@@ -5,3 +5,4 @@ from renormalizer_tpu_torch.mps.thermalprop import ThermalProp, load_thermal_sta
 from renormalizer_tpu_torch.mps.gs import DmrgFCISolver, optimize_mps
 from renormalizer_tpu_torch.mps.lib import compressed_sum
 from renormalizer_tpu_torch.mps.tda import TDA
+from renormalizer_tpu_torch.mps import gs

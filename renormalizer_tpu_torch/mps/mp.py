@@ -225,6 +225,9 @@ class MatrixProduct:
         if self.to_right is None:
             self.to_right = False
 
+    def build_none_qn(self):
+        self.qntot = self.qnidx = self.qn = self.to_right = None
+
     def move_qnidx(self, dstidx: int):
         """Move the L/R quantum-number boundary (reference ``mp.py:159-172``)."""
         for idx in range(self.qnidx + 1, self.site_num + 1):
@@ -1086,6 +1089,30 @@ class MatrixProduct:
         return self.scale(other)
 
     __rmul__ = __mul__
+
+    def __eq__(self, other):
+        """Site by site: the same shapes and ``allclose`` entries (rtol
+        1e-5, atol 1e-8, numpy's defaults), compared on the first operand's
+        device in the wider dtype.  Unlike the JAX package, whose ``zip``
+        stops at the shorter one, states of different lengths differ.
+        Defining ``__eq__`` makes the class unhashable, as in the JAX
+        package."""
+        if not isinstance(other, MatrixProduct):
+            return NotImplemented
+        if len(self) != len(other):
+            return False
+        for m1, m2 in zip(self, other):
+            if m1.shape != m2.shape:
+                return False
+            dtype = torch.promote_types(m1.dtype, m2.dtype)
+            if not torch.allclose(m1.to(dtype), m2.to(device=m1.device, dtype=dtype),
+                                  rtol=1e-5, atol=1e-8):
+                return False
+        return True
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
 
     def __repr__(self):
         return "%s with %d sites" % (self.__class__, len(self))

@@ -1,0 +1,1 @@
+from renormalizer_tpu_torch.ops import contract

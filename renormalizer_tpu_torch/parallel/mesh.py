@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from renormalizer_tpu_torch.backend import resolve_device
+
 logger = logging.getLogger(__name__)
 
 _GLOBAL_MESH = None
@@ -42,7 +44,8 @@ def visible_devices():
 def make_mesh(data: int = 1, i: int = 1, j: int = 1, devices=None) -> Mesh:
     """An ``(data, i, j)`` mesh over the first ``data*i*j`` of ``devices``
     (default: the distinct visible CUDA devices).  An explicit list may
-    repeat a device."""
+    repeat a device; ``"cuda"`` is resolved to the current card, so one card
+    spelled two ways is one device."""
     if devices is None:
         devices = visible_devices()
     n = data * i * j
@@ -52,7 +55,7 @@ def make_mesh(data: int = 1, i: int = 1, j: int = 1, devices=None) -> Mesh:
             f"found {len(devices)}"
         )
     arr = np.empty(n, dtype=object)
-    arr[:] = [torch.device(d) for d in devices[:n]]
+    arr[:] = [resolve_device(d) for d in devices[:n]]
     return Mesh(arr.reshape(data, i, j))
 
 

@@ -2,11 +2,13 @@
 slices with jax unimportable."""
 
 import ast
+import importlib
 import json
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -78,6 +80,46 @@ def test_port_runs_without_jax():
     # two sweeps at M=10 already sit within 1e-4 of the regression value
     gs_e = 0.08401412 + out["gs_zpe"]
     assert abs(out["energy"] - gs_e) < 1e-4 * gs_e
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_JAX_INITS = sorted(
+    os.path.relpath(os.path.join(root, "__init__.py"), os.path.join(_REPO, "renormalizer_tpu"))
+    for root, _, files in os.walk(os.path.join(_REPO, "renormalizer_tpu"))
+    if "__init__.py" in files)
+
+
+def _bound_names(path):
+    """The public names a module binds at its top level, from its syntax
+    tree (so the JAX package is read, never imported)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Import):
+            names.update(a.asname for a in node.names if a.asname)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_") or n == "__version__"}
+
+
+@pytest.mark.parametrize("init", _JAX_INITS)
+def test_port_package_binds_every_name_of_the_jax_package(init):
+    """Each ``__init__.py`` of the port binds every name its counterpart in
+    the JAX package binds, by its own import statements: a submodule that
+    another import happened to load does not count."""
+    names = _bound_names(os.path.join(_REPO, "renormalizer_tpu", init))
+    port_init = os.path.join(_REPO, "renormalizer_tpu_torch", init)
+    assert os.path.exists(port_init), port_init
+    missing = names - _bound_names(port_init)
+    assert not missing, (init, sorted(missing))
+    parts = os.path.dirname(init).split(os.sep) if os.path.dirname(init) else []
+    mod = importlib.import_module(".".join(["renormalizer_tpu_torch"] + parts))
+    assert all(hasattr(mod, n) for n in names)
 
 
 def _port_sources():

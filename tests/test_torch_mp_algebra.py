@@ -20,6 +20,7 @@ from renormalizer_tpu_torch import (
     compressed_sum,
     interop,
 )
+from renormalizer_tpu_torch.mps import offload
 
 torch.set_num_threads(2)
 
@@ -242,3 +243,66 @@ def test_from_dense_and_hartree_product_state():
     assert_same_state(thp, jhp, atol=0)
     for q1, q2 in zip(thp.qn, jhp.qn):
         np.testing.assert_array_equal(q1, q2)
+
+
+def _perturbed(ja):
+    jp = ja.copy()
+    jp[1] = np.asarray(jp[1]) + 1e-3
+    return jp
+
+
+def _prefix(mp):
+    """``mp`` without its last site: a prefix of ``mp``."""
+    short = mp.copy()
+    short._mp = short._mp[:-1]
+    return short
+
+
+@pytest.mark.parametrize("case", ["copy", "perturbed", "bond_dims", "cold_site", "prefix"])
+def test_equality(case, monkeypatch):
+    """``==``/``!=`` answer as the JAX package's on the same states, but
+    for a prefix: the JAX package's ``zip`` stops at the shorter state and
+    says equal (``renormalizer_tpu/mps/mp.py:1213-1217``); the port says
+    a state of fewer sites differs."""
+    ja, jb, ta, tb = pair()
+    if case == "copy":
+        jother, tother = ja.copy(), ta.copy()
+    elif case == "perturbed":
+        jother = _perturbed(ja)
+        tother = interop.mps_from_object(MODEL, jother)
+    elif case == "bond_dims":
+        jother, tother = jb, tb
+    elif case == "cold_site":
+        jother = ja.copy()
+        monkeypatch.setenv("RENO_HOST_OFFLOAD", "2")
+        offload.hot_window.cache_clear()
+        try:
+            tother = ta.copy()
+            tother.compress_config.dump_matrix_size = 1
+            tother._offload_cold_sites(0)
+            assert tother._cold_sites
+        finally:
+            monkeypatch.delenv("RENO_HOST_OFFLOAD")
+            offload.hot_window.cache_clear()
+    else:
+        jother, tother = _prefix(ja), _prefix(ta)
+    jax_eq = ja == jother
+    port_eq = ta == tother
+    expected = {"copy": (True, True), "perturbed": (False, False),
+                "bond_dims": (False, False), "cold_site": (True, True),
+                "prefix": (True, False)}[case]
+    assert (jax_eq, port_eq) == expected
+    assert (ta != tother) == (not port_eq)
+    assert (tother == ta) == port_eq
+    if case == "cold_site":
+        assert not tother._cold_sites  # iteration restored every site
+
+
+def test_build_none_qn_and_unhashable():
+    ja, _, ta, _ = pair()
+    ja.build_none_qn()
+    ta.build_none_qn()
+    for t in (ta, ja):
+        assert (t.qntot, t.qnidx, t.qn, t.to_right) == (None, None, None, None)
+    assert Mps.__hash__ is None and rj.Mps.__hash__ is None
+    assert (ta == 1.0) is False and ta != "state"

@@ -15,6 +15,8 @@ dense ground states (the JAX tests' bound), 1e-5 relative against the
 Holstein regression energy.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -104,6 +106,30 @@ def test_make_mesh_layout_and_error():
     finally:
         par.set_global_mesh(None)
     assert par.get_global_mesh() is None
+
+
+def test_one_card_spelled_two_ways_is_one_device(monkeypatch):
+    """``"cuda"`` and ``"cuda:0"`` name one card: the mesh and
+    ``backend.use_device`` resolve the unindexed spelling to the current
+    card, so a mesh over both has one distinct device and places no sector
+    unless placement is forced.  ``torch.cuda.current_device`` is patched to
+    0 and no tensor is made, so no card is needed."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    m = par.make_mesh(i=2, j=2, devices=["cuda", "cuda:0", "cuda", "cuda:0"])
+    assert set(m.devices.flat) == {torch.device("cuda", 0)}
+    par.set_global_mesh(m)
+    try:
+        monkeypatch.setattr(trunc_device, "PLACE_SECTORS", None)
+        assert trunc_device._sector_devices() is None
+        monkeypatch.setattr(trunc_device, "PLACE_SECTORS", True)
+        assert trunc_device._sector_devices() == [torch.device("cuda", 0)] * 4
+    finally:
+        par.set_global_mesh(None)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+        with backend.use_device("cuda"):
+            assert backend.device == torch.device("cuda", 0)
+    assert backend.device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("case", ["mps", "tree"])
