@@ -1,0 +1,8 @@
+"""Share of the traced window of ground-state solves in which no device
+operation ran."""
+
+from harness.readers import idle_pct
+
+
+def read(probe):
+    return idle_pct(probe)
