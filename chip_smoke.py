@@ -149,7 +149,8 @@ Phases (any failure exits non-zero):
      thermofield state and from_mps at TREE_BOUNDS.
  15. the site update's host-hiding machinery and the tiering, on the
      DMRG model (every sweep of the procedure run, as bench.py drives its
-     steady state; per sweep the seconds, PLAN_STATS, the host reads of a
+     steady state; per sweep the seconds, the selection paths (the
+     ``trunc.plan.*`` counters), the host reads of a
      spectrum, the index cache's hits and misses): (a) phase 4's DMRG
      with the asynchronous static-plan selection (RENO_ASYNC_TRUNC=1, the
      card's default), without it (=0), then without and with it again
@@ -456,6 +457,41 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+# the selection paths and sync reasons of the asynchronous truncation, as the
+# port counts them (``trunc.plan.<path>``, ``trunc.plan_sync.<reason>``)
+PLAN_PATHS = ("static", "stale", "sync", "noarm", "tree_stale", "tree_sync")
+SYNC_REASONS = ("no-plan", "pattern", "layout", "unarmed")
+
+
+def _counts():
+    """The port's counters as they stand (``utils.profiling.COUNTERS``)."""
+    from renormalizer_tpu_torch.utils import profiling
+
+    return profiling.snapshot()
+
+
+def _since(before, name):
+    """Growth of the port's counter ``name`` since ``before`` (``_counts()``)."""
+    from renormalizer_tpu_torch.utils.profiling import COUNTERS
+
+    return COUNTERS[name] - before.get(name, 0)
+
+
+def _grown(before, prefix, keys):
+    """Growth since ``before`` of the counters ``prefix + key``, by key, for
+    the keys that grew."""
+    return {k: n for k in keys if (n := _since(before, prefix + k))}
+
+
+def _placed(before):
+    """Sectors placed on each mesh device since ``before``, by device."""
+    from renormalizer_tpu_torch.utils import profiling
+
+    prefix = "trunc.sectors_placed."
+    return {k[len(prefix):]: n for k, n in profiling.delta(before).items()
+            if k.startswith(prefix)}
 
 
 def cuda_times_in_turns(fns, reps, warm=None):
@@ -852,14 +888,13 @@ def phase_main_path(card):
     gs.single_sweep = timed_sweep
     trunc_device.jacobi_eigh = grams
     try:
-        jacobi_eigh.launches = 0
-        trunc_device.LINALG_EIGH_GRAMS = 0
+        counts0 = _counts()
         t0 = time.perf_counter()
         energies, opt = optimize_mps(mps, mpo)
         backend.sync()
         total = time.perf_counter() - t0
-        launches = jacobi_eigh.launches
-        elsewhere = trunc_device.LINALG_EIGH_GRAMS
+        launches = _since(counts0, "jacobi.launches")
+        elsewhere = _since(counts0, "trunc.linalg_eigh_grams")
     finally:
         gs.single_sweep = single_sweep
         trunc_device.jacobi_eigh = jacobi_eigh
@@ -1020,9 +1055,8 @@ def run_steps(tag, card, step, state, checks, nsteps=3):
     ones, each between two device syncs.  ``step(state)`` returns the next
     state; ``checks(state)`` runs outside the timed region."""
     from renormalizer_tpu_torch.backend import backend
-    from renormalizer_tpu_torch.mps import mps as mps_module
 
-    visits0 = dict(mps_module.TDVP_PS_VISITS)
+    visits0 = _counts()
     seconds = []
     for _ in range(nsteps):
         backend.sync()
@@ -1031,7 +1065,7 @@ def run_steps(tag, card, step, state, checks, nsteps=3):
         backend.sync()
         seconds.append(time.perf_counter() - t0)
         checks(state)
-    visits = {k: v - visits0[k] for k, v in mps_module.TDVP_PS_VISITS.items()}
+    visits = {k: _since(visits0, "tdvp.visits." + k) for k in ("fused", "unfused")}
     print(f"{tag} ({card}) first step {seconds[0]:.4f} s; timed steps "
           f"{[round(t, 4) for t in seconds[1:]]} s; site visits {visits}",
           flush=True)
@@ -1084,9 +1118,7 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
     grams = GramRecord(keep_grams=True)
     trunc_device.jacobi_eigh = grams
     try:
-        jacobi_eigh.launches = 0
-        trunc_device.LINALG_EIGH_GRAMS = 0
-        trunc_device.SVD_BLOCKS = 0
+        counts0 = _counts()
         backend.sync()
         t0 = time.perf_counter()
         job = SpinBosonDynamics(
@@ -1095,8 +1127,9 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
             evolve_config=EvolveConfig(EvolveMethod.tdvp_ps))
         backend.sync()
         construct_s = time.perf_counter() - t0
-        launches, elsewhere = jacobi_eigh.launches, trunc_device.LINALG_EIGH_GRAMS
-        svd_blocks = trunc_device.SVD_BLOCKS
+        launches = _since(counts0, "jacobi.launches")
+        elsewhere = _since(counts0, "trunc.linalg_eigh_grams")
+        svd_blocks = _since(counts0, "trunc.svd_blocks")
     finally:
         trunc_device.jacobi_eigh = jacobi_eigh
     print(f"{tag} constructor {construct_s:.3f} s: jacobi launches {launches}, "
@@ -1117,13 +1150,13 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
     check(max(job.latest_mps.bond_dims) == m_small, f"{tag}: bonds did not expand")
     checks = StepChecks(tag, job.h_mpo, state_of=lambda j: j.latest_mps)
     checks(job)
-    trunc_device.SVD_BLOCKS = 0
+    steps0 = _counts()
     _, seconds = run_steps(
         tag, card, lambda j: j.evolve(evolve_dt=dt, nsteps=1), job, checks)
-    complex_grams = trunc_device.LINALG_EIGH_GRAMS
-    step_svd_blocks = trunc_device.SVD_BLOCKS
+    complex_grams = _since(counts0, "trunc.linalg_eigh_grams")
+    step_svd_blocks = _since(steps0, "trunc.svd_blocks")
     sigma_z = np.array(job.sigma_z)
-    print(f"{tag} jacobi launches {jacobi_eigh.launches}, complex Gram eigh "
+    print(f"{tag} jacobi launches {_since(counts0, 'jacobi.launches')}, complex Gram eigh "
           f"through torch.linalg.eigh {complex_grams}, complex sector blocks of "
           f"the steps' compresses factored by torch.linalg.svd {step_svd_blocks}; "
           f"sigma_z(t) {[round(float(x), 6) for x in sigma_z]}; bond dims "
@@ -1332,9 +1365,7 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
     kubo_module.ThermalProp = TimedThermalProp
     trunc_device.jacobi_eigh = grams
     try:
-        jacobi_eigh.launches = 0
-        trunc_device.LINALG_EIGH_GRAMS = 0
-        trunc_device.SVD_BLOCKS = 0
+        counts0 = _counts()
         backend.sync()
         t0 = time.perf_counter()
         kubo = kubo_module.TransportKubo(
@@ -1344,8 +1375,9 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
             evolve_config=EvolveConfig(EvolveMethod.tdvp_ps))
         backend.sync()
         construct_s = time.perf_counter() - t0
-        launches, elsewhere = jacobi_eigh.launches, trunc_device.LINALG_EIGH_GRAMS
-        svd_blocks = trunc_device.SVD_BLOCKS
+        launches = _since(counts0, "jacobi.launches")
+        elsewhere = _since(counts0, "trunc.linalg_eigh_grams")
+        svd_blocks = _since(counts0, "trunc.svd_blocks")
     finally:
         kubo_module.ThermalProp = base
         trunc_device.jacobi_eigh = jacobi_eigh
@@ -1393,7 +1425,7 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
                   f"{tag}: {name} <H> moved from {e0} to {energy}")
 
     step_checks(kubo)
-    complex0 = trunc_device.LINALG_EIGH_GRAMS
+    complex0 = _counts()
     seconds = []
     for _ in range(nsteps):
         backend.sync()
@@ -1408,7 +1440,7 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
           f"then ft; {card}): first {seconds[0]:.4f} s, timed "
           f"{[round(t, 4) for t in seconds[1:]]} s; <H> drift bra {drift['bra']:.3e} "
           f"ket {drift['ket']:.3e}; complex Gram eigh through torch.linalg.eigh "
-          f"{trunc_device.LINALG_EIGH_GRAMS - complex0}", flush=True)
+          f"{_since(complex0, 'trunc.linalg_eigh_grams')}", flush=True)
     print(f"{tag}: C(t) {[f'{c:.6e}' for c in corr]}; "
           f"mobility {kubo.calc_mobility()[1]:.6g} cm^2/(V s) over "
           f"{kubo.evolve_times[-1]:.0f} a.u.", flush=True)
@@ -1422,9 +1454,7 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
 
 
 def _ivp_delta(before):
-    from renormalizer_tpu_torch.lib import solvers
-
-    return {k: solvers.IVP_COUNTS[k] - before[k] for k in ("nfev", "nsteps")}
+    return {k: _since(before, "ivp." + k) for k in ("nfev", "nsteps")}
 
 
 def phase_vmf_oracles():
@@ -1436,7 +1466,6 @@ def phase_vmf_oracles():
     from renormalizer_tpu_torch import (
         CompressConfig, EvolveConfig, EvolveMethod, HolsteinModel, Mol, Mpo,
         Mps, Op, Phonon, Quantity, TI1DModel)
-    from renormalizer_tpu_torch.lib import solvers
     from renormalizer_tpu_torch.model import BasisSimpleElectron
     from renormalizer_tpu_torch.transport import (
         EDGE_THRESHOLD, ChargeDiffusionDynamics, SpectralFunctionZT)
@@ -1466,7 +1495,7 @@ def phase_vmf_oracles():
         deviations, ivp = [], []
         t0 = time.perf_counter()
         for i in range(1, nsteps + 1):
-            before = dict(solvers.IVP_COUNTS)
+            before = _counts()
             mps = mps.evolve(mpo, dt)
             ivp.append(_ivp_delta(before))
             psi = scipy.linalg.expm(-1j * h * dt * i) @ psi0
@@ -1525,21 +1554,17 @@ class JobSteps:
 
     def run(self, step, nsteps, after=lambda: None):
         from renormalizer_tpu_torch.backend import backend
-        from renormalizer_tpu_torch.lib import solvers
-        from renormalizer_tpu_torch.mps import trunc_device
-        from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
 
         for _ in range(nsteps):
-            before = dict(solvers.IVP_COUNTS)
-            launches0, complex0 = jacobi_eigh.launches, trunc_device.LINALG_EIGH_GRAMS
+            before = _counts()
             backend.sync()
             t0 = time.perf_counter()
             step()
             backend.sync()
             self.seconds.append(time.perf_counter() - t0)
             self.ivp.append(_ivp_delta(before))
-            self.launches.append(jacobi_eigh.launches - launches0)
-            self.complex.append(trunc_device.LINALG_EIGH_GRAMS - complex0)
+            self.launches.append(_since(before, "jacobi.launches"))
+            self.complex.append(_since(before, "trunc.linalg_eigh_grams"))
             after()
         print(f"{self.tag} ({self.card}) first step {self.seconds[0]:.4f} s; timed steps "
               f"{[round(t, 4) for t in self.seconds[1:]]} s; RKF45 nfev/nsteps per step "
@@ -1558,13 +1583,13 @@ def _record_constructor(tag, build):
     grams = GramRecord(keep_grams=True)
     trunc_device.jacobi_eigh = grams
     try:
-        launches0 = jacobi_eigh.launches
+        counts0 = _counts()
         backend.sync()
         t0 = time.perf_counter()
         job = build()
         backend.sync()
         seconds = time.perf_counter() - t0
-        launches = jacobi_eigh.launches - launches0
+        launches = _since(counts0, "jacobi.launches")
     finally:
         trunc_device.jacobi_eigh = jacobi_eigh
     print(f"{tag}: constructor {seconds:.2f} s, jacobi launches {launches}", flush=True)
@@ -1609,8 +1634,7 @@ def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
     model = holstein_chain(6)
     timed, by_path = {}, {}
     dts = dts or {"b": 20.0, "c": 20.0}
-    jacobi_eigh.launches = 0
-    trunc_device.LINALG_EIGH_GRAMS = 0
+    counts0 = _counts()
     for key, method in (("b", EvolveMethod.tdvp_mu_vmf), ("c", EvolveMethod.tdvp_ps2)):
         tag = (f"[vmf {key}] ChargeDiffusionDynamics holstein 6x(1+2) 6 levels, T=0, "
                f"{method.name}, M={m}")
@@ -1646,12 +1670,11 @@ def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
             check(sum(steps.complex) > 0, f"{tag}: no complex Gram was counted")
         if profile:
             phase_profile_step(card, f"[vmf {key}]", lambda: job.evolve(dts[key], 1))
-    by_path["charge_diffusion"] = jacobi_eigh.launches
+    by_path["charge_diffusion"] = _since(counts0, "jacobi.launches")
 
     # (d) the kernel inside the time loop: imaginary-time MU-VMF of the MpDm
     tag = f"[vmf d] ThermalProp holstein 6x(1+2) 6 levels, 298 K, tdvp_mu_vmf, M={m}"
-    jacobi_eigh.launches = 0
-    trunc_device.LINALG_EIGH_GRAMS = 0
+    counts0 = _counts()
     prop_mpos = {}
     for imol in range(model.mol_num):
         prop_mpos.update(prop_ops.e_ph_static_correlation(model, imol=imol))
@@ -1665,14 +1688,15 @@ def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
         t0 = time.perf_counter()
         tp = ThermalProp(rho, evolve_config=EvolveConfig(EvolveMethod.tdvp_ps),
                          properties=prop)
-        construct = jacobi_eigh.launches
+        construct = _since(counts0, "jacobi.launches")
         # MU-VMF from the freshly expanded state (all bonds at 1e-10 padding)
         # is too stiff to step: warm up by TDVP-PS, then switch
         tp.evolve(None, warm_steps, beta / 20j)
         tp.latest_mps.evolve_config = EvolveConfig(EvolveMethod.tdvp_mu_vmf)
         print(f"{tag}: constructor and {warm_steps} TDVP-PS steps of beta/20 "
               f"{time.perf_counter() - t0:.2f} s, jacobi launches {construct} and "
-              f"{jacobi_eigh.launches - construct}; bond dims {tp.latest_mps.bond_dims}",
+              f"{_since(counts0, 'jacobi.launches') - construct}; bond dims "
+              f"{tp.latest_mps.bond_dims}",
               flush=True)
 
         def after():
@@ -1688,7 +1712,7 @@ def phase_vmf_jobs(card, profile, gram_tol, m=64, nsteps=4, thermal_steps=3,
         steps.run(lambda: tp.evolve(None, 1, beta / thermal_div / 1j), thermal_steps, after)
     finally:
         trunc_device.jacobi_eigh = jacobi_eigh
-    launches = jacobi_eigh.launches
+    launches = _since(counts0, "jacobi.launches")
     check(all(n > 0 for n in steps.launches),
           f"{tag}: a time step launched the Jacobi kernel {steps.launches} times")
     _check_held("[vmf d]", grams, launches,
@@ -1859,7 +1883,6 @@ def phase_excited_jobs(card, gram_tol, m=64):
     from renormalizer_tpu_torch.backend import backend
     from renormalizer_tpu_torch.cv import SpectraZtCV
     from renormalizer_tpu_torch.cv.spectra_cv import batch_run
-    from renormalizer_tpu_torch.lib import solvers
     from renormalizer_tpu_torch.mps import gs, trunc_device
     from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
 
@@ -1871,15 +1894,14 @@ def phase_excited_jobs(card, gram_tol, m=64):
         grams = GramRecord(keep_grams=True)
         trunc_device.jacobi_eigh = grams
         try:
-            jacobi_eigh.launches = 0
-            trunc_device.LINALG_EIGH_GRAMS = 0
+            counts0 = _counts()
             backend.sync()
             t0 = time.perf_counter()
             out = run()
             backend.sync()
             wall = time.perf_counter() - t0
-            count = jacobi_eigh.launches
-            complex_grams = trunc_device.LINALG_EIGH_GRAMS
+            count = _since(counts0, "jacobi.launches")
+            complex_grams = _since(counts0, "trunc.linalg_eigh_grams")
         finally:
             trunc_device.jacobi_eigh = jacobi_eigh
         grams.report(tag, count)
@@ -1941,15 +1963,15 @@ def phase_excited_jobs(card, gram_tol, m=64):
         backend.sync()
         setup = time.perf_counter() - t0
         fresh.append(cv.clone_for_batch())
-        cg0.update(solvers.CG_COUNTS)
+        cg0.update(_counts())
         out = batch_run(freqs, 1, cv)
         solve_log.extend(cv.solve_log)
         return out, setup
 
     fresh = []
     (responses, setup), wall, count = recorded("[excited b]", run_cv)
-    cg_solves = solvers.CG_COUNTS["solves"] - cg0["solves"]
-    cg_iters = solvers.CG_COUNTS["iterations"] - cg0["iterations"]
+    cg_solves = _since(cg0, "cg.solves")
+    cg_iters = _since(cg0, "cg.iterations")
     sweeps = sum(n for _, n, _ in solve_log)
     per_freq = (wall - setup) / len(freqs)
     print(f"[excited b] responses {responses} at {[round(f, 6) for f in freqs]} a.u.; "
@@ -2043,12 +2065,11 @@ def phase_qc_dmrg(tag, card, gram_tol, bound):
     gs.single_sweep = timed_sweep
     trunc_device.jacobi_eigh = grams
     try:
-        jacobi_eigh.launches = 0
-        trunc_device.LINALG_EIGH_GRAMS = 0
+        counts0 = _counts()
         energies, opt = optimize_mps(mps, mpo)
         backend.sync()
-        launches = jacobi_eigh.launches
-        elsewhere = trunc_device.LINALG_EIGH_GRAMS
+        launches = _since(counts0, "jacobi.launches")
+        elsewhere = _since(counts0, "trunc.linalg_eigh_grams")
     finally:
         gs.single_sweep = single_sweep
         trunc_device.jacobi_eigh = jacobi_eigh
@@ -2095,7 +2116,7 @@ def phase_qc_oracles():
         BasisHalfSpin, CompressConfig, CompressCriteria, HolsteinModel, Model, Mol,
         Mpo, Mps, Op, Phonon, Quantity)
     from renormalizer_tpu_torch.model.h_qc import int_to_h, read_fcidump
-    from renormalizer_tpu_torch.mps import DmrgFCISolver, StackedMpo, trunc_device
+    from renormalizer_tpu_torch.mps import DmrgFCISolver, StackedMpo
     from renormalizer_tpu_torch.mps import mpo as mpo_module
     from renormalizer_tpu_torch.mps.gs import construct_mps_mpo, optimize_mps
     from renormalizer_tpu_torch.utils import (
@@ -2150,7 +2171,7 @@ def phase_qc_oracles():
     # OFS through the procedure's compress configs (an integer entry would
     # replace the config and drop ``ofs``, as in the JAX package): every swap
     # that try_swap_site makes is counted, and the singular values of both
-    # orders come from compress_factors' device SVD (SVD_BLOCKS)
+    # orders come from compress_factors' device SVD (``trunc.svd_blocks``)
     swaps = []
     try_swap_site = mpo_module.Mpo.try_swap_site
 
@@ -2167,7 +2188,7 @@ def phase_qc_oracles():
     try:
         t0 = time.perf_counter()
         swaps.clear()
-        blocks = trunc_device.SVD_BLOCKS
+        blocks = _counts()
         scheme1 = holstein.switch_scheme(1)
         mps, mpo = construct_mps_mpo(scheme1, 10, 1)
         mps.model = Model(mps.model.basis, mps.model.ham_terms)
@@ -2179,7 +2200,7 @@ def phase_qc_oracles():
                   abs(opt.expectation(Mpo(opt.model)) - gs_e)) / gs_e
         check(swaps, "[qc c] OFS-S DMRG of the scheme-1 chain made no swap")
         report(f"OFS-S DMRG, scheme-1 chain, {len(swaps)} swaps, "
-               f"{trunc_device.SVD_BLOCKS - blocks} SVD blocks, |E - GS_E| / GS_E "
+               f"{_since(blocks, 'trunc.svd_blocks')} SVD blocks, |E - GS_E| / GS_E "
                "(last sweep and <H> of the reordered chain)", dev, QC_BOUNDS["ofs"], t0)
 
         # spins i and i + 3 coupled, a weak field on each: in the order
@@ -2435,16 +2456,15 @@ def phase_tree_dmrg(card, gram_tol, m=TREE_M, profile=False, tag="[tree a]",
     trunc_device.jacobi_eigh = grams
     torch.cuda.reset_peak_memory_stats()
     try:
-        jacobi_eigh.launches = 0
-        trunc_device.LINALG_EIGH_GRAMS = 0
+        counts0 = _counts()
         backend.sync()
         t0 = time.perf_counter()
         with prof:
             energies = tree_gs.optimize_ttns(ttns, ttno, procedure)
             backend.sync()
         wall = time.perf_counter() - t0
-        launches = jacobi_eigh.launches
-        elsewhere = trunc_device.LINALG_EIGH_GRAMS
+        launches = _since(counts0, "jacobi.launches")
+        elsewhere = _since(counts0, "trunc.linalg_eigh_grams")
     finally:
         tree_gs.optimize_recursion = recursion
         trunc_device.jacobi_eigh = jacobi_eigh
@@ -2492,7 +2512,6 @@ def phase_tree_pyrazine(card, nsteps=PYR_STEPS):
     from renormalizer_tpu_torch import CompressConfig, CompressCriteria, EvolveConfig, EvolveMethod, Op
     from renormalizer_tpu_torch.backend import backend
     from renormalizer_tpu_torch.model.pyrazine import E_DOFS, pyrazine_model
-    from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
     from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree
     from renormalizer_tpu_torch.utils.constant import fs2au
 
@@ -2500,7 +2519,7 @@ def phase_tree_pyrazine(card, nsteps=PYR_STEPS):
     mctdh = np.load(PYR_MCTDH)[::4][:nsteps + 1, 1:]
     model = pyrazine_model()
     tree = BasisTree.binary(model.basis)
-    jacobi_eigh.launches = 0
+    counts0 = _counts()
     t0 = time.perf_counter()
     ttno = TTNO(tree, model.ham_terms)
     ttns = TTNS(tree, condition={"s2": 1}).expand_bond_dimension(ttno)
@@ -2522,7 +2541,8 @@ def phase_tree_pyrazine(card, nsteps=PYR_STEPS):
     print(f"{tag} set-up {setup:.2f} s; {nsteps} TDVP-PS steps of 2 fs, seconds "
           f"per step ({card}) mean {np.mean(steps):.4f} min {min(steps):.4f} max "
           f"{max(steps):.4f}, total {sum(steps):.2f} s; state {ttns.root.tensor.dtype}, "
-          f"bond dims {ttns.bond_dims}; jacobi launches {jacobi_eigh.launches}",
+          f"bond dims {ttns.bond_dims}; jacobi launches "
+          f"{_since(counts0, 'jacobi.launches')}",
           flush=True)
     print(f"{tag} S1/S2 populations at 0, 30, 60, 90, 120 fs: "
           f"{[[round(float(x), 4) for x in occ[i]] for i in range(0, nsteps + 1, 15)]}; "
@@ -2549,7 +2569,6 @@ def phase_tree_oracles():
         Op, Phonon, Quantity)
     from renormalizer_tpu_torch.tn import (
         TTNO, TTNS, BasisTree, from_mps, max_entangled_ex, optimize_ttns)
-    from renormalizer_tpu_torch.tn.time_evolution import TREE_COUNTS
 
     tag = "[tree c]"
     ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
@@ -2567,7 +2586,7 @@ def phase_tree_oracles():
         if method == "tdvp_ps2":
             ttns.compress_config = CompressConfig(threshold=1e-7)
         psi0 = ttns.todense(order=model.basis).ravel().astype(complex)
-        counts0 = dict(TREE_COUNTS)
+        counts0 = _counts()
         devs = []
         for i in range(1, 6):
             ttns = ttns.evolve(ttno, 0.2)
@@ -2578,9 +2597,9 @@ def phase_tree_oracles():
         results[method] = float(np.mean(devs))
         print(f"{tag} {method}: 5 steps of 0.2, mean occupation deviation from "
               f"expm {results[method]:.3e} (bound {TREE_BOUNDS['evolve']}); "
-              f"Krylov propagations {TREE_COUNTS['local_steps'] - counts0['local_steps']}, "
+              f"Krylov propagations {_since(counts0, 'tree_evolve.local_steps')}, "
               f"VMF overlaps read to the host "
-              f"{TREE_COUNTS['vmf_host_reads'] - counts0['vmf_host_reads']}", flush=True)
+              f"{_since(counts0, 'tree_evolve.vmf_host_reads')}", flush=True)
         check(results[method] < TREE_BOUNDS["evolve"], f"{tag} {method} {results[method]}")
 
     ttns = TTNS.random(tree, 1, 16)
@@ -2683,14 +2702,14 @@ def _merged(records):
 
 
 def _hide_counters():
-    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.utils.profiling import COUNTERS
 
-    stats = trunc_device.PLAN_STATS
-    return dict(static=stats["static"], stale=stats["stale"], sync=stats["sync"],
-                noarm=stats["noarm"], reads=trunc_device.SPECTRUM_READS,
-                hits=trunc_device.IDX_CACHE_STATS["hits"],
-                misses=trunc_device.IDX_CACHE_STATS["misses"],
-                retries=trunc_device.SKETCH_RETRIES)
+    return dict(static=COUNTERS["trunc.plan.static"], stale=COUNTERS["trunc.plan.stale"],
+                sync=COUNTERS["trunc.plan.sync"], noarm=COUNTERS["trunc.plan.noarm"],
+                reads=COUNTERS["trunc.spectrum_reads"],
+                hits=COUNTERS["trunc.idx_cache.hits"],
+                misses=COUNTERS["trunc.idx_cache.misses"],
+                retries=COUNTERS["trunc.sketch_retries"])
 
 
 def _hide_dmrg(tag, card, mps, mpo, env, consts=None):
@@ -2699,7 +2718,7 @@ def _hide_dmrg(tag, card, mps, mpo, env, consts=None):
     sweep loop of optimize_mps without its early stop, so that a plan meets
     its pattern again), every Gram recorded (kept for the plain version):
     per sweep its seconds, the site updates and the selection paths they
-    took (PLAN_STATS), the host reads of a spectrum, the index cache's hits
+    took (``trunc.plan.<path>``), the host reads of a spectrum, the index cache's hits
     and misses and the exact retries of a sketch; the sync reasons of the run; the
     peak device memory."""
     import torch
@@ -2716,23 +2735,21 @@ def _hide_dmrg(tag, card, mps, mpo, env, consts=None):
     sweeps, energies = [], []
 
     def counted_update(self, *args, **kwargs):
-        static, reads = trunc_device.PLAN_STATS["static"], trunc_device.SPECTRUM_READS
+        before = _counts()
         count["updates"] += 1
         out = update(self, *args, **kwargs)
-        if trunc_device.PLAN_STATS["static"] > static:
-            count["static_reads"] += trunc_device.SPECTRUM_READS - reads
+        if _since(before, "trunc.plan.static"):
+            count["static_reads"] += _since(before, "trunc.spectrum_reads")
         return out
 
     with _environ(**env), _constants(**(consts or {})):
-        trunc_device.reset_plan_stats()
+        counts0 = _counts()
         trunc_device.jacobi_eigh = grams
         MatrixProduct._update_mps_device = counted_update
         torch.cuda.reset_peak_memory_stats()
         # earlier runs' kept Grams stay allocated: the peak is read above it
         base = torch.cuda.memory_allocated()
         try:
-            jacobi_eigh.launches = 0
-            trunc_device.LINALG_EIGH_GRAMS = 0
             backend.sync()
             t0 = time.perf_counter()
             mps.ensure_left_canonical()
@@ -2754,13 +2771,12 @@ def _hide_dmrg(tag, card, mps, mpo, env, consts=None):
                 e, opt_e_idx = min(micro)
                 energies.append(e)
             total = time.perf_counter() - t0
-            launches = jacobi_eigh.launches
-            elsewhere = trunc_device.LINALG_EIGH_GRAMS
+            launches = _since(counts0, "jacobi.launches")
+            elsewhere = _since(counts0, "trunc.linalg_eigh_grams")
         finally:
             trunc_device.jacobi_eigh = jacobi_eigh
             MatrixProduct._update_mps_device = update
-        reasons = collections.Counter(
-            r for _, r in trunc_device.PLAN_STATS.get("sync_sites", []))
+        reasons = _grown(counts0, "trunc.plan_sync.", SYNC_REASONS)
     opt = mps
     peak = torch.cuda.max_memory_allocated() - base
     e_min = float(min(energies))
@@ -2972,15 +2988,13 @@ def phase_hide_tree(card, gram_tol):
     (RENO_ASYNC_TRUNC=0 and 1): both within TREE_E_TOL of E_REF (14(a)'s own
     gate) and the previous visit's spectrum reused in the asynchronous
     run."""
-    from renormalizer_tpu_torch.mps import trunc_device
-
     out = {}
     for flag in (0, 1):
         with _environ(RENO_ASYNC_TRUNC=flag):
-            trunc_device.reset_plan_stats()
+            counts0 = _counts()
             launches, run = phase_tree_dmrg(card, gram_tol, tag=f"[hide d] async={flag}",
                                             time_shapes=False)
-            stats = dict(trunc_device.PLAN_STATS)
+            stats = {k: _since(counts0, "trunc.plan." + k) for k in PLAN_PATHS}
         print(f"[hide d] async={flag}: plan reuse {stats['tree_stale']}, current "
               f"spectrum {stats['tree_sync']}", flush=True)
         out[flag] = dict(run, launches=launches, reuse=stats["tree_stale"])
@@ -3132,26 +3146,21 @@ def phase_mesh_dmrg(card, gram_tol, mesh, distinct, main, profile=False):
     trunc_device.jacobi_eigh = grams
     par.set_global_mesh(mesh)
     phop.reset_stats()
-    trunc_device.SECTORS_PLACED.clear()
-    trunc_device.reset_plan_stats()
+    counts0 = _counts()
     try:
-        jacobi_eigh.launches = 0
-        trunc_device.LINALG_EIGH_GRAMS = 0
         backend.sync()
         t0 = time.perf_counter()
         with prof:
             energies, opt = optimize_mps(mps, mpo)
             backend.sync()
         total = time.perf_counter() - t0
-        launches = jacobi_eigh.launches
-        elsewhere = trunc_device.LINALG_EIGH_GRAMS
+        launches = _since(counts0, "jacobi.launches")
+        elsewhere = _since(counts0, "trunc.linalg_eigh_grams")
         stats = {k: phop.STATS[k] for k in ("sharded", "fallback")}
         gathers = dict(phop.GATHERS)
-        placed = dict(trunc_device.SECTORS_PLACED)
-        plan = {k: v for k, v in trunc_device.PLAN_STATS.items()
-                if v and k != "sync_sites"}
-        plan["sync_reasons"] = dict(collections.Counter(
-            r for _, r in trunc_device.PLAN_STATS.get("sync_sites", [])))
+        placed = _placed(counts0)
+        plan = _grown(counts0, "trunc.plan.", PLAN_PATHS)
+        plan["sync_reasons"] = _grown(counts0, "trunc.plan_sync.", SYNC_REASONS)
         audit = phop.audit_engaged_collectives(n_sweeps=len(sweep_times))
     finally:
         par.set_global_mesh(None)
@@ -3221,10 +3230,10 @@ def phase_mesh_candidates(mesh, call):
     try:
         for flag in (False, True):
             with _constants(MASK_BUDGET=0, PLACE_SECTORS=flag):
-                trunc_device.SECTORS_PLACED.clear()
+                counts0 = _counts()
                 parts, sigma, qn_list = trunc_device.candidates(
                     coef, qnbigl, qnbigr, qntot, system, cap, **kwargs)
-                runs[flag] = (parts, sigma, qn_list, dict(trunc_device.SECTORS_PLACED))
+                runs[flag] = (parts, sigma, qn_list, _placed(counts0))
     finally:
         par.set_global_mesh(None)
     (p0, s0, q0, d0), (p1, s1, q1, d1) = runs[False], runs[True]
@@ -3276,11 +3285,11 @@ def phase_mesh_second_device(gram_tol):
         return False
     dev = torch.device("cuda", 1)
     a = _symmetric(np.random.default_rng(16), (2, 288, 288), torch.float32).to(dev)
-    launches0 = jacobi_eigh.launches
+    counts0 = _counts()
     w, v = jacobi_eigh(a)
     torch.cuda.synchronize(dev)
     w_p, v_p = jacobi_eigh_reference(a)
-    check(jacobi_eigh.launches == launches0 + 1 and w.device == dev == v.device,
+    check(_since(counts0, "jacobi.launches") == 1 and w.device == dev == v.device,
           f"{tag} the launch did not run on {dev}")
     _check_eigh(f"{tag} kernel on {dev}", _eigh_errors(a, w, v), gram_tol)
     _check_eigh(f"{tag} plain on {dev}", _eigh_errors(a, w_p, v_p), gram_tol)
@@ -3419,10 +3428,10 @@ def phase_examples_in_process(card, gram_tol):
         if name in EXAMPLES_FP64:
             backend.use_64bits()
         try:
-            launches0 = jacobi_eigh.launches
+            counts0 = _counts()
             text, secs = run_example(os.path.join(EXAMPLES, name))
             torch.cuda.synchronize()
-            n = jacobi_eigh.launches - launches0
+            n = _since(counts0, "jacobi.launches")
         finally:
             trunc_device.jacobi_eigh = jacobi_eigh
             (backend.use_32bits if was_32 else backend.use_64bits)()

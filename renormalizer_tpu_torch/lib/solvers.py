@@ -31,6 +31,7 @@ from renormalizer_tpu_torch.ops.contract import (
 )
 from renormalizer_tpu_torch.parallel import hop as phop
 from renormalizer_tpu_torch.parallel.mesh import get_global_mesh
+from renormalizer_tpu_torch.utils.profiling import COUNTERS, count_wait, span
 
 _OUT_OF_SECTOR = 1e10
 
@@ -54,9 +55,12 @@ def eigh_wide(a: torch.Tensor):
     below the FCI energy, 3.467e-5 below with this (``chip_smoke.py``
     13(b); NVIDIA H100 80GB HBM3, 700 W)."""
     if a.dtype in (torch.float64, torch.complex128):
-        return torch.linalg.eigh(a)
-    wide = torch.complex128 if a.is_complex() else torch.float64
-    w, v = torch.linalg.eigh(a.to(wide))
+        w, v = torch.linalg.eigh(a)
+    else:
+        wide = torch.complex128 if a.is_complex() else torch.float64
+        w, v = torch.linalg.eigh(a.to(wide))
+    if a.is_cuda:
+        count_wait()  # cuSOLVER's own wait, which the sync debug mode misses
     return w.to(a.real.dtype), v.to(a.dtype)
 
 
@@ -85,7 +89,8 @@ def _davidson_core(hop, x0: torch.Tensor, hdiag: torch.Tensor, tol: float,
                    max_cycle: int, max_space: int):
     """Lowest eigenpair of the hermitian operator ``hop`` from the flat
     guess ``x0``, preconditioned by the diagonal ``hdiag``.  Returns
-    ``(theta, x, iterations)``; ``theta`` is a 0-d device tensor."""
+    ``(theta, x, iterations)``; ``theta`` is a 0-d device tensor.  The
+    iterations are counted in ``davidson.iterations``."""
     n = x0.shape[0]
     space = min(max_space, n)
     hdiag = hdiag.to(x0.real.dtype)
@@ -105,6 +110,7 @@ def _davidson_core(hop, x0: torch.Tensor, hdiag: torch.Tensor, tol: float,
         hx = c0 @ w[:size]
         r = hx - theta * x
         if float(torch.linalg.norm(r)) <= tol:
+            COUNTERS["davidson.iterations"] += it
             return theta, x, it
         # preconditioned new direction, orthogonalized twice against V
         t = r / (hdiag - theta + 1e-4)
@@ -124,6 +130,7 @@ def _davidson_core(hop, x0: torch.Tensor, hdiag: torch.Tensor, tol: float,
         v[size] = t
         w[size] = hop(t)
         size += 1
+    COUNTERS["davidson.iterations"] += max_cycle
     return theta, x, max_cycle
 
 
@@ -249,7 +256,8 @@ def davidson_multiroot(hop: Callable, x0_list, hdiag: torch.Tensor,
     ``renormalizer/mps/gs.py:536-538``), one host read per iteration.
     ``hop`` maps an (k, N) block of rows to its image; ``hdiag`` above 1e9
     flags the entries outside the sector.  Returns ``(thetas, X, niter)``
-    with ``X`` of shape (nroots, N)."""
+    with ``X`` of shape (nroots, N); ``niter`` is counted in
+    ``davidson.iterations``."""
     x0 = torch.stack(list(x0_list))
     n = x0.shape[1]
     dtype = x0.dtype
@@ -295,6 +303,7 @@ def davidson_multiroot(hop: Callable, x0_list, hdiag: torch.Tensor,
         hx = cs.T @ w
         r = hx - thetas[:, None] * x
         if float(torch.linalg.vector_norm(r, dim=1).max()) <= tol:
+            COUNTERS["davidson.iterations"] += it
             return thetas, x, it
         t = r / (hdiag[None, :] - thetas[:, None] + 1e-4)
         for _ in range(2):
@@ -310,6 +319,7 @@ def davidson_multiroot(hop: Callable, x0_list, hdiag: torch.Tensor,
         v[slots] = t
         w[slots] = hop(t)
         size += nroots
+    COUNTERS["davidson.iterations"] += max_cycle
     return thetas, x, max_cycle
 
 
@@ -400,42 +410,47 @@ def _lanczos_expm(hop: Callable, dt, v0: torch.Tensor, m_max: int,
     up: a live direction whose ``beta`` lies under the threshold is dropped,
     at a cost of at most ``|dt| beta``, so a spectrum narrower than 64 ulp of
     its own offset is propagated as if degenerate."""
-    real = v0.real.dtype
-    tol = breakdown_eps * torch.finfo(real).eps
-    out_dtype = (torch.promote_types(v0.dtype, torch.complex64)
-                 if isinstance(dt, complex) else v0.dtype)
-    beta0 = torch.linalg.vector_norm(v0)
-    big_v = torch.zeros((m_max + 1, v0.shape[0]), dtype=v0.dtype, device=v0.device)
-    big_v[0] = v0 / beta0
-    alpha = torch.zeros(m_max, dtype=real, device=v0.device)
-    beta = torch.zeros(m_max, dtype=real, device=v0.device)
-    vprev = torch.zeros_like(v0)
-    bprev = torch.zeros((), dtype=real, device=v0.device)
-    scale = torch.zeros((), dtype=real, device=v0.device)
-    for j in range(m_max):
-        v = big_v[j]
-        w = hop(v)
-        scale = torch.maximum(scale, torch.linalg.vector_norm(w))
-        a = torch.vdot(v, w).real
-        w = w - a * v - bprev * vprev
-        # full reorthogonalization; rows beyond j are still zero.
-        # conj(V) w = conj(V conj(w)): conjugate the vector, not the basis
-        basis = big_v[: j + 1]
-        w = w - basis.T @ (basis @ w.conj()).conj()
-        b = torch.linalg.vector_norm(w)
-        keep = b > torch.clamp(tol * scale, min=1e-14)
-        big_v[j + 1] = torch.where(keep, w / b, 0)
-        alpha[j] = a
-        beta[j] = bprev = torch.where(keep, b, 0)
-        vprev = v
-    t_mat = (torch.diag(alpha) + torch.diag(beta[: m_max - 1], 1)
-             + torch.diag(beta[: m_max - 1], -1))
-    w_eig, u = torch.linalg.eigh(t_mat)
-    # coef = u diag(exp(dt w)) u^T e_1, with the real u kept out of the
-    # complex product until the end
-    phase = torch.exp(dt * w_eig)
-    coef = (u * u[0, :][None, :]).to(phase.dtype) @ phase
-    return (beta0 * coef.to(out_dtype)) @ big_v[:m_max].to(out_dtype), m_max
+    with span("lanczos"):
+        COUNTERS["lanczos.calls"] += 1
+        COUNTERS["lanczos.steps"] += m_max
+        real = v0.real.dtype
+        tol = breakdown_eps * torch.finfo(real).eps
+        out_dtype = (torch.promote_types(v0.dtype, torch.complex64)
+                     if isinstance(dt, complex) else v0.dtype)
+        beta0 = torch.linalg.vector_norm(v0)
+        big_v = torch.zeros((m_max + 1, v0.shape[0]), dtype=v0.dtype, device=v0.device)
+        big_v[0] = v0 / beta0
+        alpha = torch.zeros(m_max, dtype=real, device=v0.device)
+        beta = torch.zeros(m_max, dtype=real, device=v0.device)
+        vprev = torch.zeros_like(v0)
+        bprev = torch.zeros((), dtype=real, device=v0.device)
+        scale = torch.zeros((), dtype=real, device=v0.device)
+        for j in range(m_max):
+            v = big_v[j]
+            w = hop(v)
+            scale = torch.maximum(scale, torch.linalg.vector_norm(w))
+            a = torch.vdot(v, w).real
+            w = w - a * v - bprev * vprev
+            # full reorthogonalization; rows beyond j are still zero.
+            # conj(V) w = conj(V conj(w)): conjugate the vector, not the basis
+            basis = big_v[: j + 1]
+            w = w - basis.T @ (basis @ w.conj()).conj()
+            b = torch.linalg.vector_norm(w)
+            keep = b > torch.clamp(tol * scale, min=1e-14)
+            big_v[j + 1] = torch.where(keep, w / b, 0)
+            alpha[j] = a
+            beta[j] = bprev = torch.where(keep, b, 0)
+            vprev = v
+        t_mat = (torch.diag(alpha) + torch.diag(beta[: m_max - 1], 1)
+                 + torch.diag(beta[: m_max - 1], -1))
+        w_eig, u = torch.linalg.eigh(t_mat)
+        if t_mat.is_cuda:
+            count_wait()  # cuSOLVER's own wait, which the sync debug mode misses
+        # coef = u diag(exp(dt w)) u^T e_1, with the real u kept out of the
+        # complex product until the end
+        phase = torch.exp(dt * w_eig)
+        coef = (u * u[0, :][None, :]).to(phase.dtype) @ phase
+        return (beta0 * coef.to(out_dtype)) @ big_v[:m_max].to(out_dtype), m_max
 
 
 def _python_dt(dt):
@@ -609,9 +624,9 @@ _FB_C = np.array([0, 1 / 4, 3 / 8, 12 / 13, 1, 1 / 2])
 _FB_B5 = np.array([16 / 135, 0, 6656 / 12825, 28561 / 56430, -9 / 50, 2 / 55])
 _FB_B4 = np.array([25 / 216, 0, 1408 / 2565, 2197 / 4104, -1 / 5, 0])
 
-# Totals of the RKF45 solves since import (``chip_smoke.py`` prints them per
-# evolution step): solves, right-hand-side evaluations, attempted steps.
-IVP_COUNTS = {"solves": 0, "nfev": 0, "nsteps": 0}
+# The RKF45 solves are counted in ``utils.profiling.COUNTERS`` (``chip_smoke.py``
+# prints them per evolution step): ``ivp.solves``, ``ivp.nfev`` (right-hand-side
+# evaluations) and ``ivp.nsteps`` (attempted steps).
 
 
 def _rms(x: torch.Tensor) -> torch.Tensor:
@@ -708,9 +723,9 @@ def solve_ivp(fun, t_span, y0, rtol=1e-3, atol=1e-6, max_steps=100000,
             h = h * factor
         else:
             h = h * max(0.2, 0.9 * err ** (-0.2))
-    IVP_COUNTS["solves"] += 1
-    IVP_COUNTS["nfev"] += nfev
-    IVP_COUNTS["nsteps"] += nsteps
+    COUNTERS["ivp.solves"] += 1
+    COUNTERS["ivp.nfev"] += nfev
+    COUNTERS["ivp.nsteps"] += nsteps
     return IvpResult(y, t, nfev, nsteps)
 
 
@@ -809,8 +824,8 @@ def lobpcg_standard(a_op: Callable, x: torch.Tensor, m: int = 100,
 
 # --- conjugate gradient ----------------------------------------------------
 
-# CG solves and iterations (``chip_smoke.py`` prints iterations per site)
-CG_COUNTS = {"solves": 0, "iterations": 0}
+# CG solves and iterations are counted in ``cg.solves`` and ``cg.iterations``
+# (``chip_smoke.py`` prints iterations per site)
 
 
 def _vdot_real(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -845,6 +860,6 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float = 1e-5,
         p = z + (gamma_new / gamma) * p
         gamma = gamma_new
         k += 1
-    CG_COUNTS["solves"] += 1
-    CG_COUNTS["iterations"] += k
+    COUNTERS["cg.solves"] += 1
+    COUNTERS["cg.iterations"] += k
     return x, k

@@ -9,8 +9,8 @@ root: ``davidson_fused``; several: ``davidson_multiroot``), scipy's ``eigsh`` ov
 (``algo="arpack"``) or LOBPCG on ``sigma - H`` (``"lobpcg"``, and
 ``"primme"``, which the JAX package also routes there).  ``omega`` targets
 the eigenstate nearest to it by optimizing (H - omega)^2 with two-layer
-environments; with ``RENO_PROFILE=dir`` the sweeps run under
-``torch.profiler`` (``utils/profiling.py``).  Several roots truncate the averaged density matrix
+environments; with ``RENO_PROFILE=dir`` the call runs under
+``torch.profiler`` with its spans (``utils/profiling.py``).  Several roots truncate the averaged density matrix
 (``Mps._update_mps`` with a list).  A :class:`StackedMpo` keeps one
 ``Environ`` per term and sums the terms' hops (and dense matrices) in the
 eigensolver.  With ``compress_config.ofs`` each update may swap its two DoFs
@@ -56,7 +56,7 @@ from renormalizer_tpu_torch.ops.contract import (
     tensordot1,
 )
 from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria, Quantity
-from renormalizer_tpu_torch.utils.profiling import maybe_profile
+from renormalizer_tpu_torch.utils.profiling import COUNTERS, maybe_profile, span
 
 logger = logging.getLogger(__name__)
 
@@ -74,38 +74,38 @@ def optimize_mps(mps: Mps, mpo: Mpo, omega: float = None) -> Tuple[List, Mps]:
     optimizing (H - omega)^2.  Returns (macro-sweep energies, optimized
     MPS), or with ``nroots > 1`` (per-sweep lists of root energies, one
     MPS per root)."""
-    assert mps.optimize_config.method in ("2site", "1site")
-    logger.info(f"optimization method: {mps.optimize_config.method}")
-    logger.info(f"procedure: {mps.optimize_config.procedure}")
+    with maybe_profile("dmrg"), span("dmrg.solve"):
+        assert mps.optimize_config.method in ("2site", "1site")
+        logger.info(f"optimization method: {mps.optimize_config.method}")
+        logger.info(f"procedure: {mps.optimize_config.procedure}")
 
-    if mps.is_left_canonical:
-        mps.ensure_right_canonical()
-        env = "R"
-    else:
-        mps.ensure_left_canonical()
-        env = "L"
+        if mps.is_left_canonical:
+            mps.ensure_right_canonical()
+            env = "R"
+        else:
+            mps.ensure_left_canonical()
+            env = "L"
 
-    compress_config_bk = mps.compress_config
-    if omega is not None:
-        if isinstance(mpo, StackedMpo):
-            raise NotImplementedError("StackedMpo + omega is not implemented yet")
-        mpo = mpo.add(Mpo.identity(mpo.model).scale(-omega))
-        environ = Environ(mps, [mpo, mpo], env)
-    elif isinstance(mpo, StackedMpo):
-        environ = [Environ(mps, item, env) for item in mpo.mpos]
-    else:
-        environ = Environ(mps, mpo, env)
+        compress_config_bk = mps.compress_config
+        if omega is not None:
+            if isinstance(mpo, StackedMpo):
+                raise NotImplementedError("StackedMpo + omega is not implemented yet")
+            mpo = mpo.add(Mpo.identity(mpo.model).scale(-omega))
+            environ = Environ(mps, [mpo, mpo], env)
+        elif isinstance(mpo, StackedMpo):
+            environ = [Environ(mps, item, env) for item in mpo.mpos]
+        else:
+            environ = Environ(mps, mpo, env)
 
-    with maybe_profile("dmrg"):
         macro_iteration_result, res_mps = _sweeps(mps, mpo, environ, omega)
 
-    assert res_mps is not None
-    roots = res_mps if isinstance(res_mps, list) else [res_mps]
-    roots = [mp.normalize("mps_only").ensure_left_canonical().canonicalise()
-             for mp in roots]
-    for mp in roots:
-        mp.compress_config = compress_config_bk
-    return macro_iteration_result, (roots if isinstance(res_mps, list) else roots[0])
+        assert res_mps is not None
+        roots = res_mps if isinstance(res_mps, list) else [res_mps]
+        roots = [mp.normalize("mps_only").ensure_left_canonical().canonicalise()
+                 for mp in roots]
+        for mp in roots:
+            mp.compress_config = compress_config_bk
+        return macro_iteration_result, (roots if isinstance(res_mps, list) else roots[0])
 
 
 def _sweeps(mps, mpo, environ, omega):
@@ -152,89 +152,93 @@ def _sweeps(mps, mpo, environ, omega):
 def single_sweep(mps: Mps, mpo, environ, omega, percent, last_opt_e_idx):
     """One DMRG micro sweep (reference ``gs.py:174-304``); a
     :class:`StackedMpo` comes with a list of environments, one per term."""
-    method = mps.optimize_config.method
-    nroots = mps.optimize_config.nroots
-    averaged_ms = []
-    res_mps = None
-    micro_iteration_result = []
-    operator = mpo if omega is None else [mpo, mpo]
-    for imps in mps.iter_idx_list(full=True):
-        if method == "2site" and (
-            (mps.to_right and imps == mps.site_num - 1)
-            or ((not mps.to_right) and imps == 0)
-        ):
-            break
-        if mps.to_right:
-            lmethod, rmethod = "System", "Enviro"
-        else:
-            lmethod, rmethod = "Enviro", "System"
-        if method == "1site":
-            lidx, cidx, ridx = imps - 1, [imps], imps + 1
-        elif mps.to_right:
-            lidx, cidx, ridx = imps - 1, [imps, imps + 1], imps + 2
-        else:
-            lidx, cidx, ridx = imps - 2, [imps - 1, imps], imps + 1
-        logger.debug(f"optimize site: {cidx}")
-
-        if isinstance(mpo, StackedMpo):
-            ltensor = [env_i.GetLR("L", lidx, mps, mpo_i, method=lmethod)
-                       for env_i, mpo_i in zip(environ, mpo.mpos)]
-            rtensor = [env_i.GetLR("R", ridx, mps, mpo_i, method=rmethod)
-                       for env_i, mpo_i in zip(environ, mpo.mpos)]
-            cmo = [[mpo_i[idx] for idx in cidx] for mpo_i in mpo.mpos]
-        else:
-            ltensor = environ.GetLR("L", lidx, mps, operator, method=lmethod)
-            rtensor = environ.GetLR("R", ridx, mps, operator, method=rmethod)
-            cmo = [mpo[idx] for idx in cidx]
-
-        qnbigl, qnbigr, qnmat = mps._get_big_qn(cidx)
-        qn_mask = get_qn_mask(qnmat, mps.qntot)
-        cshape = qn_mask.shape
-
-        if np.prod(cshape) < 1000 or mps.optimize_config.algo == "direct":
-            e, c = eigh_direct(mps, qn_mask, ltensor, rtensor, cmo, omega)
-            cstruct = cvec2cmat(c, qn_mask, nroots=nroots)
-        else:
-            # guesses live in the FULL local space (zeros outside the sector)
-            if nroots == 1:
-                if method == "1site":
-                    cguess = [mps[cidx[0]]]
+    COUNTERS["dmrg.sweeps"] += 1
+    with span("dmrg.sweep"):
+        method = mps.optimize_config.method
+        nroots = mps.optimize_config.nroots
+        averaged_ms = []
+        res_mps = None
+        micro_iteration_result = []
+        operator = mpo if omega is None else [mpo, mpo]
+        for imps in mps.iter_idx_list(full=True):
+            if method == "2site" and (
+                (mps.to_right and imps == mps.site_num - 1)
+                or ((not mps.to_right) and imps == 0)
+            ):
+                break
+            COUNTERS["dmrg.updates"] += 1
+            with span("dmrg.update"):
+                if mps.to_right:
+                    lmethod, rmethod = "System", "Enviro"
                 else:
-                    cguess = [tensordot1(mps[cidx[0]], mps[cidx[1]])]
-            else:
-                cguess = []
-                for ms in averaged_ms:
-                    if method == "1site":
-                        cguess.append(ms)
-                    elif mps.to_right:
-                        cguess.append(tensordot1(ms, mps[cidx[1]]))
+                    lmethod, rmethod = "Enviro", "System"
+                if method == "1site":
+                    lidx, cidx, ridx = imps - 1, [imps], imps + 1
+                elif mps.to_right:
+                    lidx, cidx, ridx = imps - 1, [imps, imps + 1], imps + 2
+                else:
+                    lidx, cidx, ridx = imps - 2, [imps - 1, imps], imps + 1
+                logger.debug(f"optimize site: {cidx}")
+
+                if isinstance(mpo, StackedMpo):
+                    ltensor = [env_i.GetLR("L", lidx, mps, mpo_i, method=lmethod)
+                               for env_i, mpo_i in zip(environ, mpo.mpos)]
+                    rtensor = [env_i.GetLR("R", ridx, mps, mpo_i, method=rmethod)
+                               for env_i, mpo_i in zip(environ, mpo.mpos)]
+                    cmo = [[mpo_i[idx] for idx in cidx] for mpo_i in mpo.mpos]
+                else:
+                    ltensor = environ.GetLR("L", lidx, mps, operator, method=lmethod)
+                    rtensor = environ.GetLR("R", ridx, mps, operator, method=rmethod)
+                    cmo = [mpo[idx] for idx in cidx]
+
+                qnbigl, qnbigr, qnmat = mps._get_big_qn(cidx)
+                qn_mask = get_qn_mask(qnmat, mps.qntot)
+                cshape = qn_mask.shape
+
+                if np.prod(cshape) < 1000 or mps.optimize_config.algo == "direct":
+                    e, c = eigh_direct(mps, qn_mask, ltensor, rtensor, cmo, omega)
+                    cstruct = cvec2cmat(c, qn_mask, nroots=nroots)
+                else:
+                    # guesses live in the FULL local space (zeros outside the sector)
+                    if nroots == 1:
+                        if method == "1site":
+                            cguess = [mps[cidx[0]]]
+                        else:
+                            cguess = [tensordot1(mps[cidx[0]], mps[cidx[1]])]
                     else:
-                        cguess.append(tensordot1(mps[cidx[0]], ms))
-            rng = np.random.default_rng(2021)
-            cguess.extend(
-                [rng.random(qn_mask.size) - 0.5 for _ in range(len(cguess), nroots)])
-            e, c = eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess)
-            if nroots == 1:
-                cstruct = c.reshape(cshape)
-            else:
-                cstruct = [ci.reshape(cshape) for ci in c]
+                        cguess = []
+                        for ms in averaged_ms:
+                            if method == "1site":
+                                cguess.append(ms)
+                            elif mps.to_right:
+                                cguess.append(tensordot1(ms, mps[cidx[1]]))
+                            else:
+                                cguess.append(tensordot1(mps[cidx[0]], ms))
+                    rng = np.random.default_rng(2021)
+                    cguess.extend(
+                        [rng.random(qn_mask.size) - 0.5 for _ in range(len(cguess), nroots)])
+                    e, c = eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess)
+                    if nroots == 1:
+                        cstruct = c.reshape(cshape)
+                    else:
+                        cstruct = [ci.reshape(cshape) for ci in c]
 
-        micro_iteration_result.append((e, cidx))
-        if cidx == last_opt_e_idx:
-            if nroots == 1:
-                res_mps = mps.copy()
-                res_mps._update_mps(cstruct, cidx, qnbigl, qnbigr, percent)
-            else:
-                res_mps = [mps.copy() for _ in range(len(cstruct))]
-                for iroot in range(len(cstruct)):
-                    res_mps[iroot]._update_mps(
-                        cstruct[iroot], cidx, qnbigl, qnbigr, percent)
-        averaged_ms = mps._update_mps(cstruct, cidx, qnbigl, qnbigr, percent)
-        if mps.compress_config.ofs is not None:
-            mpo.try_swap_site(mps.model, mps.compress_config.ofs_swap_jw)
+                micro_iteration_result.append((e, cidx))
+                if cidx == last_opt_e_idx:
+                    if nroots == 1:
+                        res_mps = mps.copy()
+                        res_mps._update_mps(cstruct, cidx, qnbigl, qnbigr, percent)
+                    else:
+                        res_mps = [mps.copy() for _ in range(len(cstruct))]
+                        for iroot in range(len(cstruct)):
+                            res_mps[iroot]._update_mps(
+                                cstruct[iroot], cidx, qnbigl, qnbigr, percent)
+                averaged_ms = mps._update_mps(cstruct, cidx, qnbigl, qnbigr, percent)
+                if mps.compress_config.ofs is not None:
+                    mpo.try_swap_site(mps.model, mps.compress_config.ofs_swap_jw)
 
-    mps._switch_direction()
-    return _realize_energies(micro_iteration_result, nroots), res_mps
+        mps._switch_direction()
+        return _realize_energies(micro_iteration_result, nroots), res_mps
 
 
 def _realize_energies(micro, nroots=1):
@@ -287,17 +291,18 @@ def _terms(ltensor, rtensor, cmo):
 def eigh_direct(mps, qn_mask, ltensor, rtensor, cmo, omega=None):
     """Dense masked effective Hamiltonian (the sum of the terms' for a
     :class:`StackedMpo`), diagonalized whole (reference ``gs.py:307-369``)."""
-    idx = _mask_index(qn_mask)
-    dim = qn_mask.size
-    ham = sum(hop_dense(lt, rt, cm, twolayer=omega is not None).reshape(dim, dim)
-              for lt, rt, cm in _terms(ltensor, rtensor, cmo))
-    ham = ham[idx][:, idx]
-    w, v = eigh_wide(ham * mps.optimize_config.inverse)
-    nroots = mps.optimize_config.nroots
-    if nroots == 1:
-        return w[0], sign_fix(v[:, 0])
-    return w[:nroots], sign_fix([v[:, i] for i in range(min(nroots, v.shape[1]))],
-                                nroots)
+    with span("eig"):
+        idx = _mask_index(qn_mask)
+        dim = qn_mask.size
+        ham = sum(hop_dense(lt, rt, cm, twolayer=omega is not None).reshape(dim, dim)
+                  for lt, rt, cm in _terms(ltensor, rtensor, cmo))
+        ham = ham[idx][:, idx]
+        w, v = eigh_wide(ham * mps.optimize_config.inverse)
+        nroots = mps.optimize_config.nroots
+        if nroots == 1:
+            return w[0], sign_fix(v[:, 0])
+        return w[:nroots], sign_fix([v[:, i] for i in range(min(nroots, v.shape[1]))],
+                                    nroots)
 
 
 def eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess):
@@ -307,67 +312,68 @@ def eigh_iterative(mps, qn_mask, ltensor, rtensor, cmo, omega, cguess):
     :class:`StackedMpo` the matvec is the sum of the terms' hops and the
     preconditioner the sum of their diagonals (``func_sum``,
     gs.py:313-349 of the JAX package)."""
-    inverse = mps.optimize_config.inverse
-    nroots = mps.optimize_config.nroots
-    algo = mps.optimize_config.algo
-    twolayer = omega is not None
-    cshape = qn_mask.shape
-    mask = device_mask(qn_mask)
-    terms = _terms(ltensor, rtensor, cmo)
-    exprs = [hop_expr(lt, rt, cm, cshape, twolayer) for lt, rt, cm in terms]
-    expr = exprs[0] if len(exprs) == 1 else (lambda c: sum(e(c) for e in exprs))
-    # the random guesses of extra roots come from numpy (float64)
-    dtype = reduce(torch.promote_types, [t.dtype for lt, rt, _ in terms for t in (lt, rt)])
-    for g in cguess:
-        if isinstance(g, torch.Tensor):
-            dtype = torch.promote_types(dtype, g.dtype)
-    guesses = [backend.tensor(g, dtype=dtype).reshape(-1) for g in cguess]
+    with span("eig"):
+        inverse = mps.optimize_config.inverse
+        nroots = mps.optimize_config.nroots
+        algo = mps.optimize_config.algo
+        twolayer = omega is not None
+        cshape = qn_mask.shape
+        mask = device_mask(qn_mask)
+        terms = _terms(ltensor, rtensor, cmo)
+        exprs = [hop_expr(lt, rt, cm, cshape, twolayer) for lt, rt, cm in terms]
+        expr = exprs[0] if len(exprs) == 1 else (lambda c: sum(e(c) for e in exprs))
+        # the random guesses of extra roots come from numpy (float64)
+        dtype = reduce(torch.promote_types, [t.dtype for lt, rt, _ in terms for t in (lt, rt)])
+        for g in cguess:
+            if isinstance(g, torch.Tensor):
+                dtype = torch.promote_types(dtype, g.dtype)
+        guesses = [backend.tensor(g, dtype=dtype).reshape(-1) for g in cguess]
 
-    def hop(x):
-        # full-space matvec restricted to the qn sector
-        x = torch.where(mask, x, 0)
-        out = expr(x.reshape(cshape)).reshape(-1) * inverse
-        return torch.where(mask, out, 0)
+        def hop(x):
+            # full-space matvec restricted to the qn sector
+            x = torch.where(mask, x, 0)
+            out = expr(x.reshape(cshape)).reshape(-1) * inverse
+            return torch.where(mask, out, 0)
 
-    if algo == "arpack":
-        return _eigh_arpack(mps, qn_mask, ltensor, rtensor, cmo, omega, expr,
-                            guesses[0])
-    if algo == "primme":
-        # PRIMME is not installed; the JAX package fills its role (a
-        # preconditioned block iterative solver) with LOBPCG, and so does
-        # the port
-        logger.info("algo='primme' honored via LOBPCG")
-        algo = "lobpcg"
-    if algo == "lobpcg":
-        return _eigh_lobpcg(hop, mask, guesses, nroots, qn_mask.size)
-    if algo != "davidson":
-        raise NotImplementedError(
-            f"eigensolver algo={algo} is not available; use 'davidson', "
-            "'arpack', 'lobpcg', 'primme' or 'direct'")
-    tol = 1e-5 if backend.is_32bits else 1e-10
-    hdiag = None
-    if _stacked(ltensor) or nroots > 1:
-        hdiag = sum(hop_diag(lt, rt, cm, twolayer).reshape(-1)
-                    for lt, rt, cm in terms) * inverse
-        hdiag = torch.where(mask, hdiag, 1e10)
-    if nroots == 1 and _stacked(ltensor):
-        e, c, niter = davidson(hop, torch.where(mask, guesses[0], 0), hdiag,
-                               tol=tol, max_cycle=100)
-        logger.debug(f"use davidson, HC hops: {niter}")
-        return e, sign_fix(c)
-    if nroots == 1:
-        formula, operands = hop_spec(ltensor, rtensor, cmo, cshape, twolayer)
-        e, c, niter = davidson_fused(
-            formula, operands, cshape, guesses[0].reshape(cshape), mask,
-            inverse=inverse, tol=tol, max_cycle=100, twolayer=twolayer)
-        logger.debug(f"use davidson, HC hops: {niter}")
-        return e, c
-    x0 = [torch.where(mask, g, 0) for g in guesses]
-    thetas, x, niter = davidson_multiroot(
-        lambda rows: torch.stack([hop(r) for r in rows]), x0, hdiag, nroots,
-        tol=max(tol, 1e-9), max_cycle=100)
-    logger.debug(f"use block davidson, iterations: {niter}")
-    return thetas, sign_fix([x[i] for i in range(nroots)], nroots)
+        if algo == "arpack":
+            return _eigh_arpack(mps, qn_mask, ltensor, rtensor, cmo, omega, expr,
+                                guesses[0])
+        if algo == "primme":
+            # PRIMME is not installed; the JAX package fills its role (a
+            # preconditioned block iterative solver) with LOBPCG, and so does
+            # the port
+            logger.info("algo='primme' honored via LOBPCG")
+            algo = "lobpcg"
+        if algo == "lobpcg":
+            return _eigh_lobpcg(hop, mask, guesses, nroots, qn_mask.size)
+        if algo != "davidson":
+            raise NotImplementedError(
+                f"eigensolver algo={algo} is not available; use 'davidson', "
+                "'arpack', 'lobpcg', 'primme' or 'direct'")
+        tol = 1e-5 if backend.is_32bits else 1e-10
+        hdiag = None
+        if _stacked(ltensor) or nroots > 1:
+            hdiag = sum(hop_diag(lt, rt, cm, twolayer).reshape(-1)
+                        for lt, rt, cm in terms) * inverse
+            hdiag = torch.where(mask, hdiag, 1e10)
+        if nroots == 1 and _stacked(ltensor):
+            e, c, niter = davidson(hop, torch.where(mask, guesses[0], 0), hdiag,
+                                   tol=tol, max_cycle=100)
+            logger.debug(f"use davidson, HC hops: {niter}")
+            return e, sign_fix(c)
+        if nroots == 1:
+            formula, operands = hop_spec(ltensor, rtensor, cmo, cshape, twolayer)
+            e, c, niter = davidson_fused(
+                formula, operands, cshape, guesses[0].reshape(cshape), mask,
+                inverse=inverse, tol=tol, max_cycle=100, twolayer=twolayer)
+            logger.debug(f"use davidson, HC hops: {niter}")
+            return e, c
+        x0 = [torch.where(mask, g, 0) for g in guesses]
+        thetas, x, niter = davidson_multiroot(
+            lambda rows: torch.stack([hop(r) for r in rows]), x0, hdiag, nroots,
+            tol=max(tol, 1e-9), max_cycle=100)
+        logger.debug(f"use block davidson, iterations: {niter}")
+        return thetas, sign_fix([x[i] for i in range(nroots)], nroots)
 
 
 def _eigh_arpack(mps, qn_mask, ltensor, rtensor, cmo, omega, expr, guess):

@@ -22,6 +22,7 @@ from renormalizer_tpu_torch.ops.contract import (
     contract_one_site,
     contract_one_site_multi_mpo,
 )
+from renormalizer_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -91,12 +92,13 @@ class Environ:
             return self.sentinel
         if method == "Enviro":
             return self.read(domain, siteidx)
-        if itensor is None:
-            offset = -1 if domain == "L" else 1
-            itensor = self.read(domain, siteidx + offset)
-        ms_conj = None if mps_conj is None else mps_conj[siteidx]
-        itensor = self._contract(itensor, mps, mpo, siteidx, domain, ms_conj)
-        self.write(domain, siteidx, itensor)
+        with span("env"):
+            if itensor is None:
+                offset = -1 if domain == "L" else 1
+                itensor = self.read(domain, siteidx + offset)
+            ms_conj = None if mps_conj is None else mps_conj[siteidx]
+            itensor = self._contract(itensor, mps, mpo, siteidx, domain, ms_conj)
+            self.write(domain, siteidx, itensor)
         return itensor
 
     def write(self, domain, siteidx, tensor):

@@ -30,6 +30,7 @@ from renormalizer_tpu_torch.mps.trunc_device import _double
 from renormalizer_tpu_torch.mps.svd_qn import add_outer, get_qn_mask
 from renormalizer_tpu_torch.ops.contract import chain_overlap, hop_expr, tensordot1
 from renormalizer_tpu_torch.utils import OFS, CompressConfig, CompressCriteria
+from renormalizer_tpu_torch.utils.profiling import COUNTERS, span
 from renormalizer_tpu_torch.utils.utils import calc_vn_entropy, sizeof_fmt
 
 logger = logging.getLogger(__name__)
@@ -524,19 +525,20 @@ class MatrixProduct:
         density matrix instead, and returns each root's coefficient rotated
         into the new basis and merged with the neighbor (the next update's
         guesses)."""
-        system = "L" if self.to_right else "R"
-        if self.compress_config.bonddim_should_set:
-            self.compress_config.set_bonddim(len(self) + 1)
-        if isinstance(cstruct, list):
-            return self._update_mps_averaged(cstruct, cidx, qnbigl, qnbigr,
-                                             system, percent)
-        if self.compress_config.ofs is not None:
-            cstruct, qnbigl, qnbigr = self._ofs_select(cstruct, cidx, qnbigl,
-                                                       qnbigr, system)
-        ms, msdim, msqn, compms = self._update_mps_device(
-            cstruct, cidx, qnbigl, qnbigr, system, percent)
-        self._write_back(cidx, ms, msqn, compms)
-        return None
+        with span("trunc"):
+            system = "L" if self.to_right else "R"
+            if self.compress_config.bonddim_should_set:
+                self.compress_config.set_bonddim(len(self) + 1)
+            if isinstance(cstruct, list):
+                return self._update_mps_averaged(cstruct, cidx, qnbigl, qnbigr,
+                                                 system, percent)
+            if self.compress_config.ofs is not None:
+                cstruct, qnbigl, qnbigr = self._ofs_select(cstruct, cidx, qnbigl,
+                                                           qnbigr, system)
+            ms, msdim, msqn, compms = self._update_mps_device(
+                cstruct, cidx, qnbigl, qnbigr, system, percent)
+            self._write_back(cidx, ms, msqn, compms)
+            return None
 
     def _update_mps_averaged(self, cstruct, cidx, qnbigl, qnbigr, system,
                              percent):
@@ -581,12 +583,14 @@ class MatrixProduct:
         slots of each sector and reads no spectrum (static); every
         ``trunc_device.STATIC_REVALIDATE`` static visits (staggered per plan) it
         selects from the previous visit's spectrum (stale); on a miss it
-        reads the current one (sync, reason in ``PLAN_STATS["sync_sites"]``).
+        reads the current one (sync).  Each path is counted in ``trunc.plan.<path>``
+        of ``utils.profiling.COUNTERS``, a sync's reason in
+        ``trunc.plan_sync.<reason>``.
         Threshold criteria take exact candidates up to
         ``trunc_device.EXACT_CAP`` and a sketch of ``trunc_device.SKETCH_CAP``
         above it, normalized by the exact ||C||_F; a sketch whose saturation
         check fails is replaced by exact candidates (counted in
-        ``trunc_device.SKETCH_RETRIES``)."""
+        ``trunc.sketch_retries``)."""
         m = int(np.prod(qnbigl.shape[:-1]))
         n = int(np.prod(qnbigr.shape[:-1]))
         bond_idx = cidx[0] if self.to_right else cidx[-1]
@@ -639,7 +643,7 @@ class MatrixProduct:
             if any(cnt >= sat and smin > thr_abs for cnt, smin in by_qn.values()):
                 # a saturated sector never reached the cut: the sketch may
                 # have missed kept states, so take exact candidates
-                trunc_device.SKETCH_RETRIES += 1
+                COUNTERS["trunc.sketch_retries"] += 1
                 total_norm = None
                 parts, sigma, qn_list = trunc_device.candidates(
                     cstruct, qnbigl, qnbigr, self.qntot, system, min(m, n),
@@ -665,7 +669,6 @@ class MatrixProduct:
         """The asynchronous update's choice of spectrum: returns (sigma or
         None, frozen counts or None, the previous plan) and stores this
         visit's plan (the new spectrum's copy is already under way)."""
-        stats = trunc_device.PLAN_STATS
         plan = self._trunc_plans.get(plan_key)
         nvisit = plan[4] if plan is not None else 0
         revalidate = trunc_device.STATIC_REVALIDATE
@@ -679,23 +682,22 @@ class MatrixProduct:
                 and not (revalidate and nvisit + 1 >= revalidate)):
             counts = plan[2]
             nvisit += 1
-            stats["static"] += 1
+            COUNTERS["trunc.plan.static"] += 1
         elif plan is not None and plan[0] == pattern:
             # the previous visit's spectrum, read on the host by now; also
             # the periodic revalidation of a static plan
             sigma = plan[1].sigma()
             nvisit = 0
-            stats["stale"] += 1
+            COUNTERS["trunc.plan.stale"] += 1
         else:
             sigma = lam.sigma()
             nvisit = 0
-            stats["sync"] += 1
-            stats.setdefault("sync_sites", []).append(
-                (plan_key,
-                 "no-plan" if plan is None
-                 else "pattern" if plan[0] != pattern
-                 else "layout" if plan[3] != layout
-                 else "unarmed"))
+            COUNTERS["trunc.plan.sync"] += 1
+            reason = ("no-plan" if plan is None
+                      else "pattern" if plan[0] != pattern
+                      else "layout" if plan[3] != layout
+                      else "unarmed")
+            COUNTERS["trunc.plan_sync." + reason] += 1
         self._trunc_plans[plan_key] = (pattern, lam, counts, layout, nvisit)
         return sigma, counts, plan
 
@@ -732,7 +734,7 @@ class MatrixProduct:
                 self._trunc_plans[plan_key] = (plan[0], plan[1], tuple(counts),
                                                layout, plan[4])
         else:
-            trunc_device.PLAN_STATS["noarm"] += 1
+            COUNTERS["trunc.plan.noarm"] += 1
 
     def _apply_selection(self, cstruct, parts, sidx, qn_list, m, n, qnbigl,
                          qnbigr, system, sigma, cidx):

@@ -46,13 +46,14 @@ from renormalizer_tpu_torch.utils import (
     calc_vn_entropy,
     calc_vn_entropy_dm,
 )
+from renormalizer_tpu_torch.utils.profiling import COUNTERS, maybe_profile, span
 
 logger = logging.getLogger(__name__)
 
-# Site visits of ``_evolve_tdvp_ps`` by branch, counted since import: the
-# fused visit (:func:`solvers.tdvp_ps_site_fused`) and the unfused one (the
-# last site of each half-sweep, and every site the fused visit declines).
-TDVP_PS_VISITS = {"fused": 0, "unfused": 0}
+# Site visits of ``_evolve_tdvp_ps`` by branch are counted in
+# ``utils.profiling.COUNTERS``: ``tdvp.visits.fused`` (the fused visit,
+# :func:`solvers.tdvp_ps_site_fused`) and ``tdvp.visits.unfused`` (the last
+# site of each half-sweep, and every site the fused visit declines).
 
 
 def _complex_mpo_twin(mpo):
@@ -609,6 +610,10 @@ class Mps(MatrixProduct):
 
     # --- evolution ------------------------------------------------------------
     def evolve(self, mpo, evolve_dt, normalize=True) -> "Mps":
+        with maybe_profile("evolve"), span("tdvp.step"):
+            return self._evolve(mpo, evolve_dt, normalize)
+
+    def _evolve(self, mpo, evolve_dt, normalize):
         method = self.evolve_config.method
         evolve = {
             EvolveMethod.prop_and_compress: self._evolve_prop_and_compress,
@@ -791,88 +796,89 @@ class Mps(MatrixProduct):
         environ = Environ(mps, mpo)
         for _ in range(2):
             for imps in mps.iter_idx_list(full=True):
-                system = "L" if mps.to_right else "R"
-                l_array = environ.read("L", imps - 1)
-                r_array = environ.read("R", imps + 1)
-                shape = list(mps[imps].shape)
-                qnbigl, qnbigr, _ = mps._get_big_qn([imps])
-                has_backward = (imps != len(mps) - 1) if mps.to_right else (imps != 0)
-                m = int(np.prod(qnbigl.shape[:-1]))
-                n = int(np.prod(qnbigr.shape[:-1]))
-                k = min(m, n)
-                use_fused = has_backward and mps[imps].ndim == 3
-                sec = _trivial_sector(qnbigl, qnbigr, mps.qntot) if use_fused else None
-                if use_fused and sec is None:
-                    # qn-structured sites go fused as long as the kept axis
-                    # is full rank (canonical MPS invariant: a bond never
-                    # exceeds the product of its free legs); the 1-site QR
-                    # then preserves the bond's qn assignment
-                    use_fused = (n if mps.to_right else m) == k
-                fused_out = None
-                if use_fused:
-                    nbr = imps + 1 if mps.to_right else imps - 1
-                    fused_out = solvers.tdvp_ps_site_fused(
-                        -1j * evolve_dt / 2, mps[imps], l_array, mpo[imps],
-                        r_array, mps[nbr], tuple(shape), m, n,
-                        mps.to_right,
-                        qnbigl=None if sec is not None else qnbigl,
-                        qnbigr=None if sec is not None else qnbigr,
-                        qntot=mps.qntot,
-                    )
-                if fused_out is not None:
-                    TDVP_PS_VISITS["fused"] += 1
-                    site, new_env, new_nbr = fused_out
-                    mps[imps] = site
-                    mps[nbr] = new_nbr
-                    qntot = np.atleast_1d(mps.qntot)
+                with span("tdvp.visit"):
+                    system = "L" if mps.to_right else "R"
+                    l_array = environ.read("L", imps - 1)
+                    r_array = environ.read("R", imps + 1)
+                    shape = list(mps[imps].shape)
+                    qnbigl, qnbigr, _ = mps._get_big_qn([imps])
+                    has_backward = (imps != len(mps) - 1) if mps.to_right else (imps != 0)
+                    m = int(np.prod(qnbigl.shape[:-1]))
+                    n = int(np.prod(qnbigr.shape[:-1]))
+                    k = min(m, n)
+                    use_fused = has_backward and mps[imps].ndim == 3
+                    sec = _trivial_sector(qnbigl, qnbigr, mps.qntot) if use_fused else None
+                    if use_fused and sec is None:
+                        # qn-structured sites go fused as long as the kept axis
+                        # is full rank (canonical MPS invariant: a bond never
+                        # exceeds the product of its free legs); the 1-site QR
+                        # then preserves the bond's qn assignment
+                        use_fused = (n if mps.to_right else m) == k
+                    fused_out = None
+                    if use_fused:
+                        nbr = imps + 1 if mps.to_right else imps - 1
+                        fused_out = solvers.tdvp_ps_site_fused(
+                            -1j * evolve_dt / 2, mps[imps], l_array, mpo[imps],
+                            r_array, mps[nbr], tuple(shape), m, n,
+                            mps.to_right,
+                            qnbigl=None if sec is not None else qnbigl,
+                            qnbigr=None if sec is not None else qnbigr,
+                            qntot=mps.qntot,
+                        )
+                    if fused_out is not None:
+                        COUNTERS["tdvp.visits.fused"] += 1
+                        site, new_env, new_nbr = fused_out
+                        mps[imps] = site
+                        mps[nbr] = new_nbr
+                        qntot = np.atleast_1d(mps.qntot)
+                        if mps.to_right:
+                            if sec is not None:
+                                mps.qn[imps + 1] = np.array([sec] * k)
+                            else:
+                                # the split preserves each bond state's quantum
+                                # number, but the crossed bond's STORAGE flips
+                                # convention (left-accumulated left of qnidx,
+                                # complement right of it; see ``move_qnidx``)
+                                mps.qn[imps + 1] = qntot[None, :] - np.asarray(mps.qn[imps + 1])
+                            mps.qnidx = imps + 1
+                            environ.write("L", imps, new_env)
+                        else:
+                            if sec is not None:
+                                mps.qn[imps] = np.array([tuple(qntot - np.asarray(sec))] * k)
+                            else:
+                                mps.qn[imps] = qntot[None, :] - np.asarray(mps.qn[imps])
+                            mps.qnidx = imps - 1
+                            environ.write("R", imps, new_env)
+                        continue
+                    COUNTERS["tdvp.visits.unfused"] += 1
+                    formula, operands = hop_spec(l_array, r_array, [mpo[imps]], shape)
+                    mps_t = solvers.expm_krylov_fused(
+                        formula, operands, -1j * evolve_dt / 2, mps[imps])
+                    if not has_backward:
+                        mps[imps] = mps_t
+                        continue
+                    u, qnlset, v, qnrset = trunc_device.qr_qn_device(
+                        mps_t, qnbigl, qnbigr, mps.qntot, system)
+                    vt = v.T  # a plain transpose
                     if mps.to_right:
-                        if sec is not None:
-                            mps.qn[imps + 1] = np.array([sec] * k)
-                        else:
-                            # the split preserves each bond state's quantum
-                            # number, but the crossed bond's STORAGE flips
-                            # convention (left-accumulated left of qnidx,
-                            # complement right of it; see ``move_qnidx``)
-                            mps.qn[imps + 1] = qntot[None, :] - np.asarray(mps.qn[imps + 1])
+                        mps[imps] = u.reshape(shape[:-1] + [-1])
+                        mps.qn[imps + 1] = np.array(qnlset)
                         mps.qnidx = imps + 1
-                        environ.write("L", imps, new_env)
+                        l_array = environ.GetLR("L", imps, mps, mpo, itensor=l_array,
+                                                method="System")
+                        # backward evolution of the bond tensor
+                        formula, operands = hop_spec(l_array, r_array, [], vt.shape)
+                        mps_t = solvers.expm_krylov_fused(formula, operands, 1j * evolve_dt / 2, vt)
+                        mps[imps + 1] = tensordot1(mps_t, mps[imps + 1])
                     else:
-                        if sec is not None:
-                            mps.qn[imps] = np.array([tuple(qntot - np.asarray(sec))] * k)
-                        else:
-                            mps.qn[imps] = qntot[None, :] - np.asarray(mps.qn[imps])
+                        mps[imps] = vt.reshape([-1] + shape[1:])
+                        mps.qn[imps] = np.array(qnrset)
                         mps.qnidx = imps - 1
-                        environ.write("R", imps, new_env)
-                    continue
-                TDVP_PS_VISITS["unfused"] += 1
-                formula, operands = hop_spec(l_array, r_array, [mpo[imps]], shape)
-                mps_t = solvers.expm_krylov_fused(
-                    formula, operands, -1j * evolve_dt / 2, mps[imps])
-                if not has_backward:
-                    mps[imps] = mps_t
-                    continue
-                u, qnlset, v, qnrset = trunc_device.qr_qn_device(
-                    mps_t, qnbigl, qnbigr, mps.qntot, system)
-                vt = v.T  # a plain transpose
-                if mps.to_right:
-                    mps[imps] = u.reshape(shape[:-1] + [-1])
-                    mps.qn[imps + 1] = np.array(qnlset)
-                    mps.qnidx = imps + 1
-                    l_array = environ.GetLR("L", imps, mps, mpo, itensor=l_array,
-                                            method="System")
-                    # backward evolution of the bond tensor
-                    formula, operands = hop_spec(l_array, r_array, [], vt.shape)
-                    mps_t = solvers.expm_krylov_fused(formula, operands, 1j * evolve_dt / 2, vt)
-                    mps[imps + 1] = tensordot1(mps_t, mps[imps + 1])
-                else:
-                    mps[imps] = vt.reshape([-1] + shape[1:])
-                    mps.qn[imps] = np.array(qnrset)
-                    mps.qnidx = imps - 1
-                    r_array = environ.GetLR("R", imps, mps, mpo, itensor=r_array,
-                                            method="System")
-                    formula, operands = hop_spec(l_array, r_array, [], u.shape)
-                    mps_t = solvers.expm_krylov_fused(formula, operands, 1j * evolve_dt / 2, u)
-                    mps[imps - 1] = tensordot1(mps[imps - 1], mps_t)
+                        r_array = environ.GetLR("R", imps, mps, mpo, itensor=r_array,
+                                                method="System")
+                        formula, operands = hop_spec(l_array, r_array, [], u.shape)
+                        mps_t = solvers.expm_krylov_fused(formula, operands, 1j * evolve_dt / 2, u)
+                        mps[imps - 1] = tensordot1(mps[imps - 1], mps_t)
             mps._switch_direction()
         return mps
 
@@ -883,7 +889,7 @@ class Mps(MatrixProduct):
         two-site tensor forward by a Lanczos expm, truncates it by the
         compress config (``_update_mps``: a real Gram goes to the Jacobi
         kernel, a complex one to ``torch.linalg.eigh``, counted in
-        ``trunc_device.LINALG_EIGH_GRAMS``) and evolves the kept site
+        ``trunc.linalg_eigh_grams``) and evolves the kept site
         backward.  With ``compress_config.ofs`` the update may swap the two
         DoFs (``_ofs_select``), and the MPO follows (``try_swap_site``)."""
         if np.iscomplex(evolve_dt):

@@ -213,7 +213,7 @@ def eigh_qn(dm: torch.Tensor, qnbigl, qnbigr, qntot, system: str):
     matrix (reference ``svd_qn.py:243-302``), on the device: each sector
     block goes through ``trunc_device.gram_eigh`` (a real block to the
     Jacobi kernel, a complex one to ``torch.linalg.eigh`` in complex128,
-    counted in ``LINALG_EIGH_GRAMS``).  Returns ``(u, s, qn_list)``: ``u``
+    counted in ``trunc.linalg_eigh_grams``).  Returns ``(u, s, qn_list)``: ``u``
     the device eigenvectors scattered into the full row space, sector by
     sector in ascending eigenvalue order, ``s`` the host square roots of the
     eigenvalues (negative rounding clipped to 0) and the per-column

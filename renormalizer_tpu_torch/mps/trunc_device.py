@@ -19,12 +19,12 @@ truncation to ``cap`` states can keep.
 
 Every real Gram eigh goes through :func:`ops.jacobi.jacobi_eigh` (the CUDA
 kernel on the card, its plain twin on the CPU); a complex Gram goes to
-``torch.linalg.eigh`` and is counted in :data:`LINALG_EIGH_GRAMS`.  The
+``torch.linalg.eigh`` and is counted in ``trunc.linalg_eigh_grams``.  The
 factorization of ``compress`` (``compress_factors`` with ``resolve``) is
 not randomized: a full SVD of each sector block (``_resolved_range``,
-counted in :data:`SVD_BLOCKS`).  The only device-to-host traffic per site
+counted in ``trunc.svd_blocks``).  The only device-to-host traffic per site
 update is the candidate spectrum (a few KB) that the host-side selection
-reads (:data:`SPECTRUM_READS`), and with ``fetch=False`` even that copy is
+reads (``trunc.spectrum_reads``), and with ``fetch=False`` even that copy is
 started without waiting (:class:`PendingSpectrum`): the asynchronous
 static-plan selection of ``MatrixProduct._update_mps_device`` reads it one
 visit later, or not at all.
@@ -57,6 +57,24 @@ gather-batched path (above the mask budget the per-sector path was
 knobs are module constants here; only :func:`async_enabled` reads the
 environment (at call time).  The JAX package's ``RENO_SECTOR_PARALLEL`` is
 not read: whether to place follows from the mesh.
+
+The counters live in ``utils.profiling.COUNTERS`` under ``trunc.``:
+``linalg_eigh_grams`` (complex Grams sent to ``torch.linalg.eigh``, which
+``chip_smoke.py`` reads beside ``jacobi.launches``), ``svd_blocks`` (sector
+blocks factored by ``torch.linalg.svd`` in ``_resolved_range``: ``compress``
+and OFS), ``spectrum_reads`` (host reads of a candidate spectrum, a blocking
+fetch or the read of a :class:`PendingSpectrum`; a static-plan update reads
+none; also readable as ``trunc_device.SPECTRUM_READS``), ``sketch_retries``
+(sketched threshold updates whose saturation check failed, so
+``MatrixProduct._update_mps_device`` computed exact candidates again),
+``idx_cache.hits``/``.misses`` (:func:`_device_idx`), ``sectors_placed.<device>``
+(sectors placed on each mesh device), ``plan.<path>`` (which selection path
+each asynchronous site update took: ``static`` = plan-constrained, no
+spectrum read; ``stale`` = the previous visit's spectrum, revalidations
+included; ``sync`` = the current spectrum, read at once, its reason counted
+in ``plan_sync.<reason>``; ``noarm`` = a selection that was not top-k per
+sector, so the static path could not arm; the tree's ``tree_stale`` and
+``tree_sync``).
 """
 
 import hashlib
@@ -71,6 +89,7 @@ from renormalizer_tpu_torch.backend import backend
 from renormalizer_tpu_torch.mps.svd_qn import _sector_indices
 from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
 from renormalizer_tpu_torch.parallel.mesh import get_global_mesh
+from renormalizer_tpu_torch.utils.profiling import COUNTERS, count_wait
 
 logger = logging.getLogger(__name__)
 
@@ -96,21 +115,6 @@ HYSTERESIS_RTOL = 1e-6
 # LAPACK's SVD.  Each check reads the device.
 VERIFY_LEVEL = 0
 
-# Gram matrices sent to torch.linalg.eigh instead of the Jacobi kernel
-# (complex only); ``chip_smoke.py`` reads it with ``jacobi_eigh.launches``.
-LINALG_EIGH_GRAMS = 0
-# Sector blocks factored by ``torch.linalg.svd`` (``_resolved_range``:
-# ``compress`` and OFS); ``chip_smoke.py`` reads it beside the launches.
-SVD_BLOCKS = 0
-# Host reads of a candidate spectrum: a blocking fetch (``fetch=True``) or
-# the read of a :class:`PendingSpectrum`.  A static-plan update reads none.
-SPECTRUM_READS = 0
-# Site updates whose sketched threshold spectrum failed its saturation
-# check, so ``MatrixProduct._update_mps_device`` computed exact candidates
-# on the device again.
-SKETCH_RETRIES = 0
-# Hits and misses of the device index cache (:func:`_device_idx`).
-IDX_CACHE_STATS = {"hits": 0, "misses": 0}
 # Sector placement under a global mesh: None places the sectors of an
 # update round-robin over the mesh's devices when it spans more than one
 # distinct device (on a mesh that names one card several times placement
@@ -118,25 +122,13 @@ IDX_CACHE_STATS = {"hits": 0, "misses": 0}
 # places them on any mesh of several entries and False never.  Tests and
 # ``chip_smoke.py`` set it with ``setattr``.
 PLACE_SECTORS = None
-# Sectors placed on each mesh device (``str(device) -> count``) by the
-# sector-parallel candidates; ``chip_smoke.py`` phase 16 reads it.
-SECTORS_PLACED = {}
-
-# Which selection path each asynchronous site update took: "static" =
-# plan-constrained, no spectrum read at all; "stale" = the previous visit's
-# spectrum (includes the periodic revalidations); "sync" = the current
-# spectrum read at once (plan miss, reason in "sync_sites"); "noarm" = a
-# selection that was not top-k per sector, so the static path could not
-# arm.  The tree's plan reuse counts "tree_stale" (the previous visit's
-# spectrum) and "tree_sync".
-PLAN_STATS = {"static": 0, "stale": 0, "sync": 0, "noarm": 0,
-              "tree_stale": 0, "tree_sync": 0}
 
 
-def reset_plan_stats():
-    PLAN_STATS.clear()
-    PLAN_STATS.update({"static": 0, "stale": 0, "sync": 0, "noarm": 0,
-                       "tree_stale": 0, "tree_sync": 0})
+def __getattr__(name):
+    # the spectrum-read counter under its earlier module name
+    if name == "SPECTRUM_READS":
+        return COUNTERS["trunc.spectrum_reads"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def async_enabled() -> bool:
@@ -173,13 +165,13 @@ def _device_idx(arr: np.ndarray, device=None) -> torch.Tensor:
     key = (arr.shape, arr.dtype.str, arr.tobytes(), str(device))
     hit = _IDX_CACHE.get(key)
     if hit is None:
-        IDX_CACHE_STATS["misses"] += 1
+        COUNTERS["trunc.idx_cache.misses"] += 1
         if len(_IDX_CACHE) > 4096:
             _IDX_CACHE.clear()
         hit = torch.as_tensor(arr.copy(), device=device)
         _IDX_CACHE[key] = hit
     else:
-        IDX_CACHE_STATS["hits"] += 1
+        COUNTERS["trunc.idx_cache.hits"] += 1
     return hit
 
 
@@ -225,21 +217,20 @@ class PendingSpectrum:
 
     def sigma(self) -> np.ndarray:
         """The host spectrum (sentinels at -1); the first call reads it."""
-        global SPECTRUM_READS
         if self._sigma is None:
             if self._event is not None:
+                count_wait()
                 self._event.synchronize()
                 self._event = None
             self._sigma = lam_to_sigma(self._host.numpy())
             self.lam = None
-            SPECTRUM_READS += 1
+            COUNTERS["trunc.spectrum_reads"] += 1
         return self._sigma
 
 
 def _read_spectrum(lam: torch.Tensor) -> np.ndarray:
     """Blocking host read of a device spectrum (counted)."""
-    global SPECTRUM_READS
-    SPECTRUM_READS += 1
+    COUNTERS["trunc.spectrum_reads"] += 1
     return lam_to_sigma(lam)
 
 
@@ -309,10 +300,12 @@ def gram_eigh(g: torch.Tensor):
     double precision: in complex64 cuSOLVER's eigh did not converge on a
     Gram of the band-limit charge diffusion on an H100 (entries from 1 down
     to the underflow range; see ``_qr``)."""
-    global LINALG_EIGH_GRAMS
     if g.is_complex():
-        LINALG_EIGH_GRAMS += 1 if g.ndim == 2 else g.shape[0]
+        n = 1 if g.ndim == 2 else g.shape[0]
+        COUNTERS["trunc.linalg_eigh_grams"] += n
         w, v = torch.linalg.eigh(_double(g))
+        if g.is_cuda:
+            count_wait(n)  # cuSOLVER's own waits, which the sync debug mode misses
         return w.to(g.real.dtype), v.to(g.dtype)
     return jacobi_eigh(g)
 
@@ -442,10 +435,11 @@ def _resolved_range(a: torch.Tensor, gen):
     the dense ensemble depending on the seed (ROADMAP queue 3).  The SVD
     returns all ``min(rows, cols)`` columns, the exact zeros' included, so
     nothing is completed and ``gen`` is not drawn from."""
-    global SVD_BLOCKS
-    SVD_BLOCKS += 1
+    COUNTERS["trunc.svd_blocks"] += 1
     u, s, _ = torch.linalg.svd(_double(a), full_matrices=False,
                                driver="gesvd" if a.is_cuda else None)
+    if a.is_cuda:
+        count_wait()  # cuSOLVER's own wait, which the sync debug mode misses
     return u.to(a.dtype), (s * s).to(a.real.dtype)
 
 
@@ -532,7 +526,7 @@ def _per_sector(cmat, secs, cap, transpose, want_complement, want_v, gen,
         if dev not in cmat_on:
             cmat_on[dev] = cmat.to(dev)
         if devices is not None:
-            SECTORS_PLACED[str(dev)] = SECTORS_PLACED.get(str(dev), 0) + 1
+            COUNTERS[f"trunc.sectors_placed.{dev}"] += 1
         out, lam, out_v = _sector_candidates(cmat_on[dev], lset, rset, l1, l2,
                                              transpose, want_v, gen, resolve)
         if dev != home:

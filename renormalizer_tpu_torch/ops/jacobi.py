@@ -41,6 +41,8 @@ stripped before returning.
 
 import torch
 
+from renormalizer_tpu_torch.utils.profiling import COUNTERS, span
+
 BLOCK = 16
 WIDTH = 2 * BLOCK          # subproblem width
 MAX_EXTRA_SWEEPS = 16
@@ -261,7 +263,7 @@ def _solve_cuda(a: torch.Tensor, sweeps: int):
                  int(sweeps) + MAX_EXTRA_SWEEPS, stream)
     if err != 0:
         raise RuntimeError(f"jacobi_eigh kernel launch failed: CUDA error {err}")
-    jacobi_eigh.launches += 1
+    COUNTERS["jacobi.launches"] += 1
     return w, v, resid, nsweeps
 
 
@@ -343,17 +345,16 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = None, return_resid: bool = False,
     relative off-diagonal residual per matrix and ``return_sweeps`` the
     sweeps each solve took, so a solve that hit the sweep cap can be seen.
     On a CUDA tensor this launches the kernel (and counts the launch in
-    ``jacobi_eigh.launches``); on a CPU tensor it runs the plain version."""
-    _check(a)
-    if a.device.type == "cpu":
-        return jacobi_eigh_reference(a, sweeps, return_resid, return_sweeps)
-    batched = a.ndim == 3
-    a3 = a if batched else a[None]
-    n0 = a3.shape[-1]
-    check_kernel_size(n0)
-    sweeps = default_sweeps(a.dtype) if sweeps is None else sweeps
-    out = _solve_cuda(_pad(a3, padded_size(n0)), sweeps)
-    return _finish(*out, n0, batched, return_resid, return_sweeps)
-
-
-jacobi_eigh.launches = 0
+    ``jacobi.launches`` of ``utils.profiling.COUNTERS``); on a CPU tensor it
+    runs the plain version.  Its span is ``trunc.jacobi``."""
+    with span("trunc.jacobi"):
+        _check(a)
+        if a.device.type == "cpu":
+            return jacobi_eigh_reference(a, sweeps, return_resid, return_sweeps)
+        batched = a.ndim == 3
+        a3 = a if batched else a[None]
+        n0 = a3.shape[-1]
+        check_kernel_size(n0)
+        sweeps = default_sweeps(a.dtype) if sweeps is None else sweeps
+        out = _solve_cuda(_pad(a3, padded_size(n0)), sweeps)
+        return _finish(*out, n0, batched, return_resid, return_sweeps)

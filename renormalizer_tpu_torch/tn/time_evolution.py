@@ -14,11 +14,11 @@ of the bond (1/reg(s) up to 1e10), which single-precision rounding turns
 into noise that stalls the RKF45 controller.  The regularized inversion is
 a host ``scipy.linalg.eigh`` in float64, as in the JAX package: one host
 read of each non-root node's overlap per right-hand side, counted in
-:data:`TREE_COUNTS`.  The JAX package also reads every node's derivative
-back to the host per right-hand side; here the derivative stays on the
-device.
+``tree_evolve.vmf_host_reads`` of ``utils.profiling.COUNTERS``.  The JAX
+package also reads every node's derivative back to the host per right-hand
+side; here the derivative stays on the device.
 
-:data:`TREE_COUNTS` ``local_steps`` counts the Krylov propagations of
+``tree_evolve.local_steps`` counts the Krylov propagations of
 TDVP-PS/PS2 (the JAX package reads each one's step count from the device;
 the port's Lanczos runs a fixed number of steps, a host integer).
 """
@@ -40,13 +40,9 @@ from renormalizer_tpu_torch.tn.hop_expr import hop_expr0, hop_expr1, hop_expr2
 from renormalizer_tpu_torch.tn.node import TreeNodeTensor, copy_connection
 from renormalizer_tpu_torch.tn.tree import EVOLVE_METHODS, TTNEnviron, TTNO, TTNS
 from renormalizer_tpu_torch.utils.configs import EvolveMethod
+from renormalizer_tpu_torch.utils.profiling import COUNTERS
 
 logger = logging.getLogger(__name__)
-
-# Totals since import: Krylov propagations of TDVP-PS/PS2 (``local_steps``)
-# and the overlaps VMF reads to the host for their regularized inverses
-# (``vmf_host_reads``, one per non-root node per right-hand side).
-TREE_COUNTS = {"local_steps": 0, "vmf_host_reads": 0}
 
 
 def regularized_inversion(m, eps):
@@ -74,7 +70,7 @@ def time_derivative_vmf(ttns: TTNS, ttno: TTNO, masks=None):
             tensor2d = tensor.reshape(-1, dim_parent)
             proj = tensor2d.conj() @ tensor2d.T
             ovlp = environ_s.node_list[inode].environ_parent.reshape(dim_parent, dim_parent)
-            TREE_COUNTS["vmf_host_reads"] += 1
+            COUNTERS["tree_evolve.vmf_host_reads"] += 1
             ovlp_inv = regularized_inversion(
                 ovlp.detach().cpu().numpy().astype(
                     np.complex128 if ovlp.is_complex() else np.float64),
@@ -143,7 +139,7 @@ def evolve_prop_and_compress_tdrk4(ttns: TTNS, ttno: TTNO, coeff, tau: float):
 
 def _krylov(hop, shape, dt, v0):
     out, j = expm_krylov(lambda y: hop(y.reshape(shape)).reshape(-1), dt, v0.reshape(-1))
-    TREE_COUNTS["local_steps"] += 1
+    COUNTERS["tree_evolve.local_steps"] += 1
     return out, j
 
 

@@ -58,6 +58,7 @@ from renormalizer_tpu_torch.utils import (
     calc_vn_entropy,
     calc_vn_entropy_dm,
 )
+from renormalizer_tpu_torch.utils.profiling import COUNTERS, span
 
 logger = logging.getLogger(__name__)
 
@@ -904,55 +905,56 @@ class TTNS(TTNBase):
         take the full-rank cap; sentinel slots (sigma = -1) count toward
         neither the bond dimension nor the selection; the kept slots go in
         sector-major order."""
-        if self.compress_config.bonddim_should_set:
-            self.compress_config.set_bonddim(len(self.node_list) + 1)
-        parent = node.parent
-        assert parent is not None
-        qnbigl, qnbigr, _ = self.get_qnmat(node, include_parent=True)
-        dim1 = int(np.prod(qnbigl.shape[:-1]))
-        dim2 = int(np.prod(qnbigr.shape[:-1]))
-        if isinstance(tensor, (list, tuple)):
-            return self._update_2site_averaged(
-                node, [t.reshape(dim1, dim2) for t in tensor],
-                qnbigl, qnbigr, m, percent, cano_parent,
-            )
-        tensor = tensor.reshape(dim1, dim2)
-        bond_idx = self.node_idx[node]
-        if m is not None:
-            cap = int(m[bond_idx]) if isinstance(m, (list, tuple, np.ndarray)) else int(m)
-        elif self.compress_config.criteria is CompressCriteria.fixed:
-            cap = self.compress_config.compute_m_trunc(
-                np.full(min(dim1, dim2), np.inf), bond_idx, left=False)
-        else:
-            cap = min(dim1, dim2)
-        system = "L" if cano_parent else "R"
-        # the JAX package's plan reuse (tree.py:914-940): at percent 0 with
-        # a fixed cap and an unchanged quantum-number pattern, select from
-        # the previous visit's spectrum, whose copy to the host ran
-        # meanwhile; there is no static path
-        use_async = (percent == 0 and trunc_device.async_enabled()
-                     and (m is not None
-                          or self.compress_config.criteria is CompressCriteria.fixed))
-        parts, sigma, qn_list = trunc_device.candidates(
-            tensor, qnbigl, qnbigr, self.qntot, system, cap,
-            want_complement=(percent != 0), fetch=not use_async)
-        if use_async:
-            sigma = self._plan_spectrum(
-                bond_idx, cano_parent, sigma,
-                trunc_device.plan_pattern(qnbigl, qnbigr, self.qntot, cap, system))
-        valid = sigma[sigma >= 0]
-        if m is None:
-            m_trunc = self.compress_config.compute_m_trunc(valid, bond_idx, left=False)
-        else:
-            m_trunc = min(cap, len(valid))
-        sidx = sorted(select_indices(sigma, qn_list, m_trunc, percent))
-        msqn = np.array([qn_list[i] for i in sidx])
-        ms, comp = trunc_device.apply_selection(tensor, parts, sidx, dim1, dim2, system)
-        if cano_parent:
-            m_node, m_parent = ms, comp          # (dim1, k), (k, dim2)
-        else:
-            m_node, m_parent = comp, ms.T        # (dim1, k), (k, dim2)
-        self._write_2site(node, m_node, m_parent, msqn, cano_parent)
+        with span("trunc"):
+            if self.compress_config.bonddim_should_set:
+                self.compress_config.set_bonddim(len(self.node_list) + 1)
+            parent = node.parent
+            assert parent is not None
+            qnbigl, qnbigr, _ = self.get_qnmat(node, include_parent=True)
+            dim1 = int(np.prod(qnbigl.shape[:-1]))
+            dim2 = int(np.prod(qnbigr.shape[:-1]))
+            if isinstance(tensor, (list, tuple)):
+                return self._update_2site_averaged(
+                    node, [t.reshape(dim1, dim2) for t in tensor],
+                    qnbigl, qnbigr, m, percent, cano_parent,
+                )
+            tensor = tensor.reshape(dim1, dim2)
+            bond_idx = self.node_idx[node]
+            if m is not None:
+                cap = int(m[bond_idx]) if isinstance(m, (list, tuple, np.ndarray)) else int(m)
+            elif self.compress_config.criteria is CompressCriteria.fixed:
+                cap = self.compress_config.compute_m_trunc(
+                    np.full(min(dim1, dim2), np.inf), bond_idx, left=False)
+            else:
+                cap = min(dim1, dim2)
+            system = "L" if cano_parent else "R"
+            # the JAX package's plan reuse (tree.py:914-940): at percent 0 with
+            # a fixed cap and an unchanged quantum-number pattern, select from
+            # the previous visit's spectrum, whose copy to the host ran
+            # meanwhile; there is no static path
+            use_async = (percent == 0 and trunc_device.async_enabled()
+                         and (m is not None
+                              or self.compress_config.criteria is CompressCriteria.fixed))
+            parts, sigma, qn_list = trunc_device.candidates(
+                tensor, qnbigl, qnbigr, self.qntot, system, cap,
+                want_complement=(percent != 0), fetch=not use_async)
+            if use_async:
+                sigma = self._plan_spectrum(
+                    bond_idx, cano_parent, sigma,
+                    trunc_device.plan_pattern(qnbigl, qnbigr, self.qntot, cap, system))
+            valid = sigma[sigma >= 0]
+            if m is None:
+                m_trunc = self.compress_config.compute_m_trunc(valid, bond_idx, left=False)
+            else:
+                m_trunc = min(cap, len(valid))
+            sidx = sorted(select_indices(sigma, qn_list, m_trunc, percent))
+            msqn = np.array([qn_list[i] for i in sidx])
+            ms, comp = trunc_device.apply_selection(tensor, parts, sidx, dim1, dim2, system)
+            if cano_parent:
+                m_node, m_parent = ms, comp          # (dim1, k), (k, dim2)
+            else:
+                m_node, m_parent = comp, ms.T        # (dim1, k), (k, dim2)
+            self._write_2site(node, m_node, m_parent, msqn, cano_parent)
 
     def _plan_spectrum(self, node_idx, cano_parent, pending, pattern):
         """The spectrum an asynchronous update selects from: the previous
@@ -964,10 +966,10 @@ class TTNS(TTNBase):
         plan = plans.get(key)
         if plan is not None and plan[0] == pattern:
             sigma = plan[1].sigma()
-            trunc_device.PLAN_STATS["tree_stale"] += 1
+            COUNTERS["trunc.plan.tree_stale"] += 1
         else:
             sigma = pending.sigma()
-            trunc_device.PLAN_STATS["tree_sync"] += 1
+            COUNTERS["trunc.plan.tree_sync"] += 1
         plans[key] = (pattern, pending)
         return sigma
 
@@ -1105,12 +1107,13 @@ class TTNEnviron(Tree):
             self.build_parent_environ_node(snode, i, ttns, ttno)
 
     def update_2site(self, snode, ttns, ttno):
-        parent = snode.parent
-        for n in (snode, parent):
-            self.build_children_environ_node(n, ttns, ttno)
-        for n in (parent, snode):
-            for i, _ in enumerate(n.children):
-                self.build_parent_environ_node(n, i, ttns, ttno)
+        with span("env"):
+            parent = snode.parent
+            for n in (snode, parent):
+                self.build_children_environ_node(n, ttns, ttno)
+            for n in (parent, snode):
+                for i, _ in enumerate(n.children):
+                    self.build_parent_environ_node(n, i, ttns, ttno)
 
     def _sandwich_args(self, snode: TreeNodeTensor, ttns: TTNS, ttno: TTNO):
         """The bra / operator / ket column of one node, as interleaved

@@ -7,6 +7,8 @@ tree's plan reuse.  Held against the JAX package's asynchronous DMRG (one
 JAX job) and its ``trunc_device.candidates``, the JAX tests' constants, or
 the port's own synchronous route."""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,7 @@ from renormalizer_tpu_torch.mps.lib import select_indices
 from renormalizer_tpu_torch.mps.mp import MatrixProduct
 from renormalizer_tpu_torch.mps.svd_qn import _sector_indices
 from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree, optimize_ttns
-from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria
+from renormalizer_tpu_torch.utils import CompressConfig, CompressCriteria, profiling
 from test_torch_dmrg import port_model
 from test_torch_tn import port_exact_model
 
@@ -32,6 +34,12 @@ ASYNC_PROCEDURE = [[10, 0.4], [20, 0.2], [30, 0.1]] + [[40, 0]] * 3
 # into percent 0 at M=128, with two more percent-0 sweeps so that a plan is
 # visited three times (the revalidation case)
 DRIFT_PROCEDURE = [[32, 0.5], [64, 0.3], [128, 0]] + [[128, 0]] * 5
+
+
+def _plan_stats(counts):
+    """The selection paths in a counter delta, by path (``static`` ...)."""
+    return collections.Counter({k[len("trunc.plan."):]: v for k, v in counts.items()
+                                if k.startswith("trunc.plan.")})
 
 
 def test_async_dmrg_matches_jax(monkeypatch):
@@ -64,15 +72,15 @@ def drift_runs():
                                        ("revalidate", "1", 2)):
             mp.setenv("RENO_ASYNC_TRUNC", flag)
             mp.setattr(trunc_device, "STATIC_REVALIDATE", revalidate)
-            trunc_device.reset_plan_stats()
-            reads = trunc_device.SPECTRUM_READS
+            before = profiling.snapshot()
             mps = seed.copy()
             mps.optimize_config.procedure = DRIFT_PROCEDURE
             mps.optimize_config.e_rtol = mps.optimize_config.e_atol = 0
             energies, opt = optimize_mps(mps, mpo)
+            counts = profiling.delta(before)
             runs[name] = dict(e=np.array(energies), shapes=[t.shape for t in opt],
-                              stats=dict(trunc_device.PLAN_STATS),
-                              reads=trunc_device.SPECTRUM_READS - reads)
+                              stats=_plan_stats(counts),
+                              reads=counts["trunc.spectrum_reads"])
     return runs
 
 
@@ -193,11 +201,12 @@ def test_sketched_threshold_retries_exactly(monkeypatch):
             monkeypatch.setattr(trunc_device, "EXACT_CAP", caps[0])
             monkeypatch.setattr(trunc_device, "SKETCH_CAP", caps[1])
         calls["frob"] = 0
-        retries = trunc_device.SKETCH_RETRIES
+        before = profiling.snapshot()
         mps = seed.copy()
         mps.optimize_config.procedure = procedure
         energies, _ = optimize_mps(mps, mpo)
-        return min(energies), calls["frob"], trunc_device.SKETCH_RETRIES - retries
+        return (min(energies), calls["frob"],
+                profiling.delta(before)["trunc.sketch_retries"])
 
     e_exact, frob_exact, retry_exact = run()
     assert frob_exact == 0 and retry_exact == 0
@@ -253,8 +262,8 @@ def test_tree_plan_reuse_matches_sync(monkeypatch):
     energies = {}
     for flag in ("0", "1"):
         monkeypatch.setenv("RENO_ASYNC_TRUNC", flag)
-        trunc_device.reset_plan_stats()
+        before = profiling.snapshot()
         energies[flag] = optimize_ttns(TTNS.random(tree, 1, 16), ttno, procedure)
-        stats = dict(trunc_device.PLAN_STATS)
+        stats = _plan_stats(profiling.delta(before))
     assert stats["tree_stale"] > 0
     np.testing.assert_allclose(energies["1"], energies["0"], atol=1e-8, rtol=0)

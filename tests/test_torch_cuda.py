@@ -6,12 +6,15 @@ installed, run them without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
 
 from renormalizer_tpu_torch.ops import jacobi
 from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_reference
+from renormalizer_tpu_torch.utils.profiling import COUNTERS
 
 torch.set_num_threads(2)
 
@@ -42,11 +45,11 @@ def test_jacobi_kernel_matches_plain(cuda, batch, n, dtype, eig, orth):
     """The CUDA kernel against its plain version, one counted launch, both
     stopping before the sweep cap."""
     a = torch.tensor(_symmetric_stack(2019, batch, n), dtype=dtype, device=cuda)
-    before = jacobi_eigh.launches
+    before = COUNTERS["jacobi.launches"]
     w, v, _, nsweeps = jacobi_eigh(a, return_resid=True, return_sweeps=True)
     w_p, _, _, nsweeps_p = jacobi_eigh_reference(a, return_resid=True,
                                                  return_sweeps=True)
-    assert jacobi_eigh.launches == before + 1
+    assert COUNTERS["jacobi.launches"] == before + 1
     cap = jacobi.default_sweeps(dtype) + jacobi.MAX_EXTRA_SWEEPS
     assert int(nsweeps.max()) < cap and int(nsweeps_p.max()) < cap
     norm = float(torch.linalg.matrix_norm(a).min())
@@ -62,13 +65,12 @@ def test_thermal_prop_reaches_the_kernel(cuda, monkeypatch):
     CPU, both in fp32: the same occupations.  The compresses of the
     expansion and of every step's bond entropies factor their real sector
     blocks by cuSOLVER's SVD on the card (counted in
-    ``trunc_device.SVD_BLOCKS``), no longer by Gram matrices through the
+    ``trunc.svd_blocks``), no longer by Gram matrices through the
     Jacobi kernel, which this path therefore does not launch."""
     from renormalizer_tpu_torch import (
         EvolveConfig, EvolveMethod, HolsteinModel, MpDm, Mol, Phonon, Quantity,
         ThermalProp)
     from renormalizer_tpu_torch.backend import backend
-    from renormalizer_tpu_torch.mps import trunc_device
 
     def occupations():
         ph = Phonon.simple_phonon(Quantity(1.0), Quantity(0.6), 3)
@@ -80,10 +82,10 @@ def test_thermal_prop_reaches_the_kernel(cuda, monkeypatch):
         return tp.e_occupations_array[-1]
 
     assert backend.device.type == "cuda" and backend.is_32bits
-    before, blocks = jacobi_eigh.launches, trunc_device.SVD_BLOCKS
+    before, blocks = COUNTERS["jacobi.launches"], COUNTERS["trunc.svd_blocks"]
     on_card = occupations()
-    launches = jacobi_eigh.launches - before
-    svd_blocks = trunc_device.SVD_BLOCKS - blocks
+    launches = COUNTERS["jacobi.launches"] - before
+    svd_blocks = COUNTERS["trunc.svd_blocks"] - blocks
     monkeypatch.setattr(backend, "device", torch.device("cpu"))
     on_cpu = occupations()
     assert svd_blocks > 0 and launches == 0
@@ -141,7 +143,7 @@ def test_kernel_on_state_averaged_density_matrix_blocks(cuda, monkeypatch):
 def test_compress_factors_svd_on_the_card(cuda):
     """``compress``'s factorization on the card: each sector block of a
     graded qn-blocked matrix (one column at 1e-10) factored by cuSOLVER's
-    SVD (counted in ``SVD_BLOCKS``, no Jacobi launch), with numpy's
+    SVD (counted in ``trunc.svd_blocks``, no Jacobi launch), with numpy's
     singular values of the same blocks and C = u diag(s) v^T."""
     from renormalizer_tpu_torch.mps import trunc_device
     from renormalizer_tpu_torch.mps.svd_qn import svd_qn
@@ -153,10 +155,11 @@ def test_compress_factors_svd_on_the_card(cuda):
     c = rng.standard_normal((40, 30))
     c[:, 3] *= 1e-10
     c *= np.all(qnl[:, None, :] + qnr[None, :, :] == qntot, axis=-1)
-    blocks, launches = trunc_device.SVD_BLOCKS, jacobi_eigh.launches
+    blocks, launches = COUNTERS["trunc.svd_blocks"], COUNTERS["jacobi.launches"]
     u, s, _, v, _, _ = trunc_device.compress_factors(
         torch.tensor(c, device=cuda), qnl, qnr, qntot, "L", resolve=True)
-    assert trunc_device.SVD_BLOCKS > blocks and jacobi_eigh.launches == launches
+    assert COUNTERS["trunc.svd_blocks"] > blocks
+    assert COUNTERS["jacobi.launches"] == launches
     _, s_host, _, _, _, _ = svd_qn(c, qnl, qnr, qntot, system="L", full_matrices=False)
     np.testing.assert_allclose(np.sort(s), np.sort(s_host), rtol=0, atol=1e-13)
     rebuilt = (u * torch.tensor(s, device=cuda)) @ v.T
@@ -178,11 +181,11 @@ def test_tree_dmrg_reaches_the_kernel(cuda):
     model = HolsteinModel([Mol(Quantity(0), [ph])] * 3, Quantity(1), 3)
     tree = BasisTree.binary(model.basis)
     ttns = TTNS.random(tree, 1, 16)
-    before = jacobi_eigh.launches
+    before = COUNTERS["jacobi.launches"]
     energies = optimize_ttns(ttns, TTNO(tree, model.ham_terms),
                              [[16, 0.4], [16, 0.2], [16, 0], [16, 0]])
     # four sweeps of the tree's five bonds, one truncation each
-    assert jacobi_eigh.launches - before >= 4 * 5
+    assert COUNTERS["jacobi.launches"] - before >= 4 * 5
     assert ttns.root.tensor.device.type == "cuda"
     assert abs(min(energies) - 0.3361574422) < 1e-5
 
@@ -216,11 +219,11 @@ def test_jacobi_kernel_on_every_visible_device(cuda):
     for k in range(torch.cuda.device_count()):
         dev = torch.device("cuda", k)
         a = torch.tensor(a_host, dtype=torch.float32, device=dev)
-        before = jacobi_eigh.launches
+        before = COUNTERS["jacobi.launches"]
         with torch.cuda.device((k + 1) % torch.cuda.device_count()):
             w, v = jacobi_eigh(a)
         w_p, _ = jacobi_eigh_reference(a)
-        assert jacobi_eigh.launches == before + 1
+        assert COUNTERS["jacobi.launches"] == before + 1
         assert w.device == dev and v.device == dev
         norm = float(torch.linalg.matrix_norm(a).min())
         assert float((w - w_p).abs().max()) < 2e-5 * norm
@@ -268,3 +271,50 @@ def test_mesh_hop_and_sector_placement_on_the_card(cuda, monkeypatch):
     (p0, s0, q0), (p1, s1, q1) = runs
     assert q0 == q1 and np.array_equal(s0, s1)
     assert all(a.device == coef.device and torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+@pytest.mark.cuda
+def test_host_waits_are_counted_where_they_happen(cuda, monkeypatch):
+    """With tracing on, every host wait of the port's device eigensolves
+    and factorizations is counted under a span: the runtime's stream and
+    event syncs in a profile of each call equal the ``waits.*`` counted
+    (torch's through its sync debug mode, cuSOLVER's own at the call site,
+    the pending spectrum's event at its read)."""
+    from renormalizer_tpu_torch.lib import solvers
+    from renormalizer_tpu_torch.mps import trunc_device
+    from renormalizer_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "TRACING", True)
+    rng = np.random.default_rng(5)
+    a32 = torch.tensor(_symmetric_stack(1, 1, 12)[0], dtype=torch.float32, device=cuda)
+    a64 = torch.tensor(_symmetric_stack(2, 1, 200)[0], device=cuda)
+    h = torch.tensor(_symmetric_stack(3, 1, 64)[0], dtype=torch.complex64, device=cuda)
+    v0 = torch.tensor(rng.standard_normal(64), dtype=torch.complex64, device=cuda)
+    grams = torch.tensor(_symmetric_stack(4, 5, 48), dtype=torch.complex128, device=cuda)
+    block = torch.tensor(rng.standard_normal((60, 40)), device=cuda)
+    lam = torch.tensor(rng.random(16), device=cuda)
+    calls = {
+        "eigh_wide f32": lambda: solvers.eigh_wide(a32),
+        "eigh_wide f64": lambda: solvers.eigh_wide(a64),
+        "lanczos": lambda: solvers._lanczos_expm(lambda v: h @ v, -0.1j, v0, 30),
+        "complex grams": lambda: trunc_device.gram_eigh(grams),
+        "complex gram": lambda: trunc_device.gram_eigh(grams[0]),
+        "resolved range": lambda: trunc_device._resolved_range(block, None),
+        "pending spectrum": lambda: trunc_device.PendingSpectrum(lam).sigma(),
+    }
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):
+        torch.cuda.synchronize()  # the profiler's first start outside the count
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        before = profiling.snapshot()
+        with torch.profiler.profile(activities=activities) as prof:
+            with profiling.span("probe"):
+                call()
+        # the port calls no device-wide sync; the profiler may
+        seen = collections.Counter(e.name for e in prof.events() if "Synchronize" in e.name)
+        waits = sum(n for k, n in profiling.delta(before).items() if k.startswith("waits."))
+        host_waits = seen["cudaStreamSynchronize"] + seen["cudaEventSynchronize"]
+        assert host_waits > 0 and waits == host_waits, (name, dict(seen), waits)
+    profiling.clear()

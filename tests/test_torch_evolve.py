@@ -28,7 +28,7 @@ from renormalizer_tpu_torch import (
     interop,
 )
 from renormalizer_tpu_torch.lib import solvers
-from renormalizer_tpu_torch.mps import mps as port_mps
+from renormalizer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -102,7 +102,7 @@ def test_tdvp_ps_dense_oracle():
     below 1e-4, norm and energy conserved, and both branches taken."""
     oracle = _oracle()
     mps = port_init()
-    before = dict(port_mps.TDVP_PS_VISITS)
+    before = profiling.snapshot()
     deviations = []
     for i in range(NSTEPS):
         mps = mps.evolve(MPO, DT)
@@ -112,8 +112,9 @@ def test_tdvp_ps_dense_oracle():
         assert abs(mps.expectation(MPO)) < 1e-10
     assert float(np.mean(deviations)) < 1e-4
     nsite = len(mps)
-    assert port_mps.TDVP_PS_VISITS["fused"] - before["fused"] == NSTEPS * 2 * (nsite - 1)
-    assert port_mps.TDVP_PS_VISITS["unfused"] - before["unfused"] == NSTEPS * 2
+    visits = profiling.delta(before)
+    assert visits["tdvp.visits.fused"] == NSTEPS * 2 * (nsite - 1)
+    assert visits["tdvp.visits.unfused"] == NSTEPS * 2
 
 
 @pytest.mark.parametrize("jax_fused", [True, False], ids=["jax-fused", "jax-unfused"])
@@ -143,14 +144,14 @@ def test_tdvp_ps_fused_against_unfused(monkeypatch):
     for _ in range(NSTEPS):
         fused = fused.evolve(MPO, DT)
 
-    before = dict(port_mps.TDVP_PS_VISITS)
+    before = profiling.snapshot()
     monkeypatch.setattr(solvers, "tdvp_ps_site_fused", lambda *a, **k: None)
     unfused = port_init()
     for _ in range(NSTEPS):
         unfused = unfused.evolve(MPO, DT)
-    assert port_mps.TDVP_PS_VISITS["fused"] == before["fused"]
-    assert (port_mps.TDVP_PS_VISITS["unfused"] - before["unfused"]
-            == NSTEPS * 2 * len(unfused))
+    visits = profiling.delta(before)
+    assert visits["tdvp.visits.fused"] == 0
+    assert visits["tdvp.visits.unfused"] == NSTEPS * 2 * len(unfused)
 
     ovlp = abs(fused.conj().dot(unfused)) / (fused.mp_norm * unfused.mp_norm)
     assert abs(ovlp - 1) < 1e-9

@@ -4,6 +4,7 @@ memory, so the tensors stay as they are and only the bookkeeping moves; the
 results must equal the untiered route's.  Also the profiling and log
 helpers of ``utils/``."""
 
+import json
 import logging
 
 import numpy as np
@@ -11,10 +12,11 @@ import pytest
 import torch
 
 from fixtures import GS_E
+from renormalizer_tpu_torch import HolsteinModel, Mol, Phonon, Quantity
 from renormalizer_tpu_torch.model import Op
 from renormalizer_tpu_torch.mps import Mpo, Mps, offload, optimize_mps
 from renormalizer_tpu_torch.mps.lib import Environ
-from renormalizer_tpu_torch.utils import EvolveConfig, EvolveMethod, log
+from renormalizer_tpu_torch.utils import EvolveConfig, EvolveMethod, log, profiling
 from renormalizer_tpu_torch.utils.profiling import maybe_profile
 from test_torch_dmrg import port_model
 from test_torch_tn import port_exact_model
@@ -104,11 +106,28 @@ def test_tdvp_with_offload_matches(tiering):
 
 
 def test_maybe_profile_writes_a_trace(tmp_path, monkeypatch):
+    """``optimize_mps`` under ``RENO_PROFILE`` writes a Chrome trace with its
+    spans on the profile's timeline, as complete events, and leaves no
+    span recorded behind it."""
     monkeypatch.setenv("RENO_PROFILE", str(tmp_path))
-    with maybe_profile("dmrg"):
-        torch.ones(8) @ torch.ones(8)
+    # the smallest chain: the profile holds every torch operator of the call
+    ph = Phonon.simple_phonon(Quantity(1), Quantity(1), 2)
+    model = HolsteinModel([Mol(Quantity(0), [ph])] * 2, Quantity(1), 3)
+    mps = Mps.random(model, 1, 2)
+    mps.optimize_config.procedure = [[2, 0], [2, 0]]
+    optimize_mps(mps, Mpo(model))
     trace = tmp_path / "dmrg" / "trace.json"
-    assert trace.stat().st_size > 0
+    events = json.loads(trace.read_text())["traceEvents"]
+    sweeps = [e for e in events if e.get("name") == "dmrg.sweep"]
+    assert sweeps and all(e["ph"] == "X" and e["dur"] > 0 for e in sweeps)
+    solve = [e for e in events if e.get("name") == "dmrg.solve"]
+    assert len(solve) == 1
+    anchors = sorted(e["ts"] + e["dur"] / 2 for e in events if e.get("name") == profiling.ANCHOR)
+    # on the profile's clock the solve opens just after its own anchor, and
+    # holds its sweeps
+    assert 0 <= solve[0]["ts"] - anchors[0] < 5e4
+    assert solve[0]["ts"] <= min(e["ts"] for e in sweeps)
+    assert profiling.SPANS == [] and not profiling.TRACING
     monkeypatch.delenv("RENO_PROFILE")
     with maybe_profile("off"):
         pass

@@ -37,6 +37,7 @@ from renormalizer_tpu_torch.ops.contract import einsum
 from renormalizer_tpu_torch.parallel import hop as phop
 from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree, optimize_ttns
 from renormalizer_tpu_torch.utils import EvolveConfig, EvolveMethod, OptimizeConfig, constant
+from renormalizer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -315,10 +316,13 @@ def test_sector_placement_is_bitwise_and_matches_jax(mesh, monkeypatch):
 
     def run(flag):
         monkeypatch.setattr(trunc_device, "PLACE_SECTORS", flag)
-        trunc_device.SECTORS_PLACED.clear()
+        before = profiling.snapshot()
         parts, sigma, qn_list = trunc_device.candidates(
             c, qnl, qnr, np.array([2]), "L", 32, want_complement=False)
-        return [p.numpy() for p in parts], sigma, qn_list, dict(trunc_device.SECTORS_PLACED)
+        placed = {k[len("trunc.sectors_placed."):]: v
+                  for k, v in profiling.delta(before).items()
+                  if k.startswith("trunc.sectors_placed.")}
+        return [p.numpy() for p in parts], sigma, qn_list, placed
 
     parts0, sigma0, qn0, placed0 = run(False)
     parts1, sigma1, qn1, placed1 = run(True)
@@ -396,13 +400,13 @@ def test_sector_parallel_dmrg_regression(mesh, monkeypatch):
     """(k): the Holstein regression DMRG with its sectors placed over the
     mesh (forced: the test mesh names one device four times)."""
     monkeypatch.setattr(trunc_device, "PLACE_SECTORS", True)
-    trunc_device.SECTORS_PLACED.clear()
+    before = profiling.snapshot()
     model = port_holstein_model()
     mps = Mps.random(model, 1, 10, percent=1.0)
     mps.optimize_config.procedure = [[10, 0.4], [20, 0.2], [30, 0.1], [40, 0]]
     energies, _ = gs.optimize_mps(mps, Mpo(model))
     assert min(energies) == pytest.approx(GS_E, rel=1e-5)
-    assert trunc_device.SECTORS_PLACED.get("cpu", 0) > 0
+    assert profiling.delta(before)["trunc.sectors_placed.cpu"] > 0
 
 
 def test_batch_run_places_one_worker_per_device(monkeypatch):

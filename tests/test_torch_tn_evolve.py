@@ -27,12 +27,12 @@ from renormalizer_tpu.utils import EvolveMethod as JaxEvolveMethod
 from renormalizer_tpu_torch import HolsteinModel, Mol, Phonon, Quantity, interop
 from renormalizer_tpu_torch.model import Model, Op
 from renormalizer_tpu_torch.tn import TTNO, TTNS, BasisTree, max_entangled_ex
-from renormalizer_tpu_torch.tn.time_evolution import TREE_COUNTS
 from renormalizer_tpu_torch.utils import (
     CompressConfig,
     CompressCriteria,
     EvolveConfig,
     EvolveMethod,
+    profiling,
 )
 
 torch.set_num_threads(2)
@@ -96,10 +96,10 @@ def test_one_step_matches_jax(method, start):
     jtree = JaxBasisTree.binary(jmodel.basis)
     jttno = JaxTTNO(jtree, jmodel.ham_terms)
     ref = _configure(_to_jax(jtree, start), method, port=False).evolve(jttno, DT)
-    steps0 = TREE_COUNTS["local_steps"]
+    before = profiling.snapshot()
     port = _configure(start.copy(), method).evolve(TTNO_H, DT)
     if method in ("tdvp_ps", "tdvp_ps2"):
-        assert TREE_COUNTS["local_steps"] > steps0
+        assert profiling.delta(before)["tree_evolve.local_steps"] > 0
     assert port.bond_dims == ref.bond_dims
     dense = port.todense(order=MODEL.basis)
     dense_ref = ref.todense(order=jmodel.basis)
@@ -126,10 +126,10 @@ def _occupation_deviations(start, method, nsteps=5):
 
 @pytest.mark.parametrize("method", ["tdvp_ps", "tdvp_ps2", "tdvp_vmf"])
 def test_dense_oracle(method, start):
-    vmf_reads0 = TREE_COUNTS["vmf_host_reads"]
+    before = profiling.snapshot()
     assert np.mean(_occupation_deviations(start, method)) < 1e-4
     if method == "tdvp_vmf":
-        assert TREE_COUNTS["vmf_host_reads"] > vmf_reads0
+        assert profiling.delta(before)["tree_evolve.vmf_host_reads"] > 0
 
 
 def test_thermofield_evolution():

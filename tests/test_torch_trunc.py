@@ -15,6 +15,7 @@ from renormalizer_tpu.mps.svd_qn import svd_qn as jax_svd_qn
 from renormalizer_tpu_torch.mps import trunc_device
 from renormalizer_tpu_torch.mps.lib import select_indices
 from renormalizer_tpu_torch.mps.svd_qn import svd_qn
+from renormalizer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -77,10 +78,10 @@ def test_complex_grams_go_to_linalg_eigh():
     c, qnl, qnr, qntot = _blocked(12, m, n, 1)
     rng = np.random.default_rng(13)
     c = c * np.exp(1j * rng.uniform(0, 2 * np.pi, c.shape))
-    before = trunc_device.LINALG_EIGH_GRAMS
+    before = profiling.snapshot()
     parts, sigma, qn_list = trunc_device.candidates(
         c, qnl, qnr, qntot, "L", cap, want_complement=False)
-    assert trunc_device.LINALG_EIGH_GRAMS == before + 2  # two sectors
+    assert profiling.delta(before)["trunc.linalg_eigh_grams"] == 2  # two sectors
     _, su, _, _, _, _ = svd_qn(c, qnl, qnr, qntot, system="L",
                                full_matrices=False)
     k = min(cap, len(su))

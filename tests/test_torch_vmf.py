@@ -30,9 +30,8 @@ from renormalizer_tpu_torch import (
     Quantity,
     interop,
 )
-from renormalizer_tpu_torch.lib import solvers
-from renormalizer_tpu_torch.mps import trunc_device
 from renormalizer_tpu_torch.mps.mps import _mu_regularize
+from renormalizer_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -143,7 +142,7 @@ def test_one_step_matches_jax(method):
     if jcc is not None:
         jstate.compress_config = jcc
     jout = jstate.evolve(JAX_MPO, dt)
-    before = dict(solvers.IVP_COUNTS)
+    before = profiling.snapshot()
     out = _port_state(method).evolve(MPO, dt)
     assert out.bond_dims == jout.bond_dims
     vec, jvec = out.todense(), jout.todense()
@@ -155,8 +154,9 @@ def test_one_step_matches_jax(method):
     else:
         assert np.abs(vec - jvec).max() < 1e-8
     if "vmf" in method:
-        assert solvers.IVP_COUNTS["solves"] == before["solves"] + 1
-        assert solvers.IVP_COUNTS["nfev"] > before["nfev"]
+        counts = profiling.delta(before)
+        assert counts["ivp.solves"] == 1
+        assert counts["ivp.nfev"] > 0
 
 
 def test_imaginary_time_mu_vmf_mpdm_dense_oracle():
@@ -176,9 +176,9 @@ def test_imaginary_time_mu_vmf_mpdm_dense_oracle():
     assert all(mt.ndim == 4 for mt in rho)
     rho.evolve_config = EvolveConfig(EvolveMethod.tdvp_mu_vmf)
     tau = 0.005
-    before = dict(solvers.IVP_COUNTS)
+    before = profiling.snapshot()
     out = rho.evolve(h, -1j * tau)
-    assert solvers.IVP_COUNTS["solves"] == before["solves"] + 1
+    assert profiling.delta(before)["ivp.solves"] == 1
     assert isinstance(out, MpDm) and not out.is_complex
     start = rho.todense()
     oracle = scipy.linalg.expm(-tau * h.todense()) @ start
@@ -204,9 +204,9 @@ def test_tdvp_ps2_raises_on_ofs():
 def test_tdvp_ps2_sends_complex_grams_to_linalg_eigh():
     """Real-time TDVP-PS2 truncates a complex 2-site tensor: its Grams go to
     ``torch.linalg.eigh`` and are counted."""
-    before = trunc_device.LINALG_EIGH_GRAMS
+    before = profiling.snapshot()
     _port_state("tdvp_ps2").evolve(MPO, 0.2)
-    assert trunc_device.LINALG_EIGH_GRAMS > before
+    assert profiling.delta(before)["trunc.linalg_eigh_grams"] > 0
 
 
 def test_mu_regularize_matches_on_host_and_device():

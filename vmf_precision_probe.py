@@ -41,9 +41,9 @@ from renormalizer_tpu_torch import (
     CompressConfig, CompressCriteria, EvolveConfig, EvolveMethod, HolsteinModel,
     MpDm, Mol, Mpo, Mps, Op, Phonon, Quantity, ThermalProp)
 from renormalizer_tpu_torch.backend import backend
-from renormalizer_tpu_torch.lib import solvers
 from renormalizer_tpu_torch.mps import mps as port_mps, trunc_device
 from renormalizer_tpu_torch.transport import ChargeDiffusionDynamics
+from renormalizer_tpu_torch.utils import profiling
 
 ORDER = ("wide", "grams", "grams", "wide")
 
@@ -75,7 +75,7 @@ def run(case, step, measure):
     """``step()`` returns the evolved state; ``measure(state)`` a dict.  A
     step that raises is printed with its error, and the next one runs."""
     for mode in ORDER:
-        before = dict(solvers.IVP_COUNTS)
+        before = profiling.snapshot()
         with precision(mode):
             backend.sync()
             t0 = time.perf_counter()
@@ -86,9 +86,9 @@ def run(case, step, measure):
                 out = None
                 error = f"{type(err).__name__}: {str(err)[:160]}"
             seconds = time.perf_counter() - t0
+        counts = profiling.delta(before)
         row = {"case": case, "mode": mode, "seconds": round(seconds, 4),
-               "nfev": solvers.IVP_COUNTS["nfev"] - before["nfev"],
-               "nsteps": solvers.IVP_COUNTS["nsteps"] - before["nsteps"]}
+               "nfev": counts["ivp.nfev"], "nsteps": counts["ivp.nsteps"]}
         row.update({"error": error} if out is None else
                    {"dtype": str(out[0].dtype), **measure(out)})
         print(json.dumps(row), flush=True)

@@ -75,8 +75,8 @@ def main():
         import renormalizer_tpu_torch as pkg
         from padding_seed_probe import _factor
         from renormalizer_tpu_torch.backend import backend
-        from renormalizer_tpu_torch.lib import solvers
         from renormalizer_tpu_torch.mps import trunc_device
+        from renormalizer_tpu_torch.utils.profiling import COUNTERS
 
         _factor(args.factor)
         if args.gauge == "svd":
@@ -85,8 +85,7 @@ def main():
                 *a, resolve=True)
         print(f"port, factor={args.factor}, gauge={args.gauge}, {backend.device}, "
               f"{backend.real_dtype}", flush=True)
-        run(pkg, lambda: (solvers.IVP_COUNTS["nfev"], solvers.IVP_COUNTS["nsteps"]),
-            args.steps)
+        run(pkg, lambda: (COUNTERS["ivp.nfev"], COUNTERS["ivp.nsteps"]), args.steps)
         return
     import renormalizer_tpu as pkg
     from renormalizer_tpu.mps import mps as jmps
