@@ -47,7 +47,12 @@ Phases (any failure exits non-zero):
      by torch.linalg.svd too, counted: at least one).  After every step: norm within 1e-4 of 1, <psi|H|psi>
      constant within ENERGY_RTOL * max(1, |E|), all tensors finite; in (d)
      sigma_z(0) = 1 and |sigma_z| <= 1 + 1e-5.  Prints seconds per step, bond
-     dimensions and the site visits by branch (fused / unfused).
+     dimensions and the site visits by branch (fused / unfused).  (a) runs
+     one more step that keeps the Lanczos tridiagonal of every exponential
+     (eager calls and graph replays) with the kernel's eigenpairs: none may
+     run to the sweep cap, their count must equal the Lanczos launches
+     counted, and each is held, as 6(d)'s Grams, against the plain version
+     within phase 3's f32 tolerances.
   8. the finite-temperature path against dense oracles, on the JAX package's
      test models: (a) ThermalProp (TDVP-PS) of 3 molecules at 1500 K, the
      electronic occupations within 1e-4 of the dense thermal populations;
@@ -243,7 +248,11 @@ the profiler, as does the full run's 16(a) with --profile), and
 
     python3 chip_smoke.py --examples
 
-phases 1, 2 and 17 (no result line).
+phases 1, 2 and 17 (no result line), and
+
+    python3 chip_smoke.py --evolve
+
+phases 1, 2 and 6 (no result line).
 """
 
 import collections
@@ -483,6 +492,21 @@ def _grown(before, prefix, keys):
     """Growth since ``before`` of the counters ``prefix + key``, by key, for
     the keys that grew."""
     return {k: n for k in keys if (n := _since(before, prefix + k))}
+
+
+def _lanczos(before):
+    """The Lanczos exponentials since ``before``, apart from the truncation's
+    ``jacobi.launches``: their tridiagonals' Jacobi launches (one a CUDA
+    call, whether eager or a graph's replay) and how they ran."""
+    from renormalizer_tpu_torch.utils import profiling
+
+    grown = profiling.delta(before)
+    eager = {k[len("lanczos.graph.eager."):]: n for k, n in grown.items()
+             if k.startswith("lanczos.graph.eager.")}
+    return (f"Lanczos tridiagonals on the kernel {grown['lanczos.jacobi_launches']} "
+            f"(calls {grown['lanczos.calls']}; graphs captured "
+            f"{grown['lanczos.graph.captures']}, replayed {grown['lanczos.graph.replays']}; "
+            f"eager {eager})")
 
 
 def _placed(before):
@@ -757,17 +781,22 @@ class GramRecord:
     def __call__(self, g, *args, **kwargs):
         from renormalizer_tpu_torch.ops.jacobi import jacobi_eigh
 
-        key = (g.shape[0] if g.ndim == 3 else 1, g.shape[-1])
-        copy = g.clone() if self.keep_grams else None
+        copy = g.clone() if self.keep_grams else g
         w, v, resid, nsweeps = jacobi_eigh(g, *args, return_resid=True,
                                            return_sweeps=True, **kwargs)
+        self.record(copy, w, v, resid, nsweeps)
+        return w, v
+
+    def record(self, g, w, v, resid, nsweeps):
+        """Keep one solve of ``g``: its shape, residual and sweeps, and with
+        ``keep_grams`` the Gram and its eigenpairs (not copied here)."""
+        key = (g.shape[0] if g.ndim == 3 else 1, g.shape[-1])
         self.grams.append(key + (resid.reshape(-1), nsweeps.reshape(-1)))
         self.itemsizes.append(g.element_size())
         if self.keep_grams:
             n = key[1]
             self.kept.setdefault((n, g.element_size()), []).append(
-                (copy.reshape(-1, n, n), w.reshape(-1, n), v.reshape(-1, n, n)))
-        return w, v
+                (g.reshape(-1, n, n), w.reshape(-1, n), v.reshape(-1, n, n)))
 
     def report(self, tag, launches):
         """Read the record back (one sync), print it and fail on a launch
@@ -855,6 +884,44 @@ class GramRecord:
         print(f"{tag} the path's own {count} Grams against torch.linalg.eigh: "
               f"inside the phase-3 tolerances; largest eig/orth/resid "
               f"{' '.join(f'{e:.2e}' for e in worst)}", flush=True)
+
+
+class TridiagonalRecord:
+    """While a path runs, keeps the Lanczos tridiagonal of every CUDA
+    exponential with what the Jacobi kernel gave for it, in a
+    ``GramRecord``: an eager call's at ``solvers._tridiag_eigh``, a graph
+    replay's from the graph's static outputs (``_LanczosGraph.tridiagonal``).
+    A context manager that returns the record."""
+
+    def __enter__(self):
+        import torch
+
+        from renormalizer_tpu_torch.lib import solvers
+
+        self.grams = GramRecord(keep_grams=True)
+        self.solve, self.replay = solvers._tridiag_eigh, solvers._LanczosGraph.__call__
+
+        def solve(t):
+            out = self.solve(t)
+            if not torch.cuda.is_current_stream_capturing():
+                self._keep(t, *out)
+            return out
+
+        def replay(graph, *args):
+            out = self.replay(graph, *args)
+            self._keep(*graph.tridiagonal)
+            return out
+
+        solvers._tridiag_eigh, solvers._LanczosGraph.__call__ = solve, replay
+        return self.grams
+
+    def __exit__(self, *exc):
+        from renormalizer_tpu_torch.lib import solvers
+
+        solvers._tridiag_eigh, solvers._LanczosGraph.__call__ = self.solve, self.replay
+
+    def _keep(self, *tensors):
+        self.grams.record(*(t.clone() for t in tensors))
 
 
 def phase_main_path(card):
@@ -1067,8 +1134,8 @@ def run_steps(tag, card, step, state, checks, nsteps=3):
         checks(state)
     visits = {k: _since(visits0, "tdvp.visits." + k) for k in ("fused", "unfused")}
     print(f"{tag} ({card}) first step {seconds[0]:.4f} s; timed steps "
-          f"{[round(t, 4) for t in seconds[1:]]} s; site visits {visits}",
-          flush=True)
+          f"{[round(t, 4) for t in seconds[1:]]} s; site visits {visits}; "
+          f"{_lanczos(visits0)}", flush=True)
     checks.report()
     return state, seconds
 
@@ -1108,6 +1175,16 @@ def phase_evolution(card, profile, gram_tol, m_small=48, m_large=256, nph=31):
               flush=True)
         check(mps.is_complex and max(mps.bond_dims) <= m, f"{tag}: bad result")
         timed[tag[8]] = seconds[1:]
+        if tag.startswith("[evolve a]"):
+            # one more step with every Lanczos tridiagonal held to the sweep
+            # cap and, against the plain version, to phase 3's tolerances
+            before = _counts()
+            with TridiagonalRecord() as tridiagonals:
+                mps = mps.evolve(mpo, dt)
+            print(f"{tag} Lanczos tridiagonals of one step: {_lanczos(before)}", flush=True)
+            tridiagonals.report(tag[:10] + " Lanczos",
+                                _since(before, "lanczos.jacobi_launches"))
+            tridiagonals.check_against_plain(tag[:10] + " Lanczos", gram_tol)
         if profile:
             phase_profile_step(card, tag[:10], lambda: mps.evolve(mpo, dt))
 
@@ -1399,7 +1476,7 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
           f"{tag}: energy at beta/2 {tp.energies[-1]} not below {tp.energies[0]}")
     print(f"{tag}: jacobi launches {launches}, real Gram eigh elsewhere "
           f"{elsewhere}, sector blocks of compress factored by torch.linalg.svd "
-          f"{svd_blocks}", flush=True)
+          f"{svd_blocks}; {_lanczos(counts0)}", flush=True)
     # the job's compresses factor by SVD, not by a Gram eigh
     check(svd_blocks > 0, f"{tag}: the job's compress factored no sector block")
     check(elsewhere == 0, f"{tag}: {elsewhere} real Gram eigh went around the kernel")
@@ -1440,7 +1517,8 @@ def phase_kubo(card, profile, gram_tol, m=64, insteps=10, nsteps=5):
           f"then ft; {card}): first {seconds[0]:.4f} s, timed "
           f"{[round(t, 4) for t in seconds[1:]]} s; <H> drift bra {drift['bra']:.3e} "
           f"ket {drift['ket']:.3e}; complex Gram eigh through torch.linalg.eigh "
-          f"{_since(complex0, 'trunc.linalg_eigh_grams')}", flush=True)
+          f"{_since(complex0, 'trunc.linalg_eigh_grams')}; {_lanczos(complex0)}",
+          flush=True)
     print(f"{tag}: C(t) {[f'{c:.6e}' for c in corr]}; "
           f"mobility {kubo.calc_mobility()[1]:.6g} cm^2/(V s) over "
           f"{kubo.evolve_times[-1]:.0f} a.u.", flush=True)
@@ -1551,6 +1629,7 @@ class JobSteps:
     def __init__(self, tag, card):
         self.tag, self.card = tag, card
         self.seconds, self.ivp, self.launches, self.complex = [], [], [], []
+        self.lanczos = []
 
     def run(self, step, nsteps, after=lambda: None):
         from renormalizer_tpu_torch.backend import backend
@@ -1565,12 +1644,14 @@ class JobSteps:
             self.ivp.append(_ivp_delta(before))
             self.launches.append(_since(before, "jacobi.launches"))
             self.complex.append(_since(before, "trunc.linalg_eigh_grams"))
+            self.lanczos.append(_since(before, "lanczos.jacobi_launches"))
             after()
         print(f"{self.tag} ({self.card}) first step {self.seconds[0]:.4f} s; timed steps "
               f"{[round(t, 4) for t in self.seconds[1:]]} s; RKF45 nfev/nsteps per step "
               f"{[(c['nfev'], c['nsteps']) for c in self.ivp]}; Jacobi launches per step "
               f"{self.launches}; complex Grams through torch.linalg.eigh per step "
-              f"{self.complex}", flush=True)
+              f"{self.complex}; Lanczos tridiagonals on the kernel per step "
+              f"{self.lanczos}", flush=True)
 
 
 def _record_constructor(tag, build):
@@ -2542,7 +2623,7 @@ def phase_tree_pyrazine(card, nsteps=PYR_STEPS):
           f"per step ({card}) mean {np.mean(steps):.4f} min {min(steps):.4f} max "
           f"{max(steps):.4f}, total {sum(steps):.2f} s; state {ttns.root.tensor.dtype}, "
           f"bond dims {ttns.bond_dims}; jacobi launches "
-          f"{_since(counts0, 'jacobi.launches')}",
+          f"{_since(counts0, 'jacobi.launches')}; {_lanczos(counts0)}",
           flush=True)
     print(f"{tag} S1/S2 populations at 0, 30, 60, 90, 120 fs: "
           f"{[[round(float(x), 4) for x in occ[i]] for i in range(0, nsteps + 1, 15)]}; "
@@ -3437,7 +3518,7 @@ def phase_examples_in_process(card, gram_tol):
             (backend.use_32bits if was_32 else backend.use_64bits)()
         check(backend.device.type == "cuda", f"{tag} left the port on {backend.device}")
         print(f"{tag}: fp{64 if name in EXAMPLES_FP64 else 32 if was_32 else 64}, "
-              f"{secs:.2f} s, jacobi launches {n}", flush=True)
+              f"{secs:.2f} s, jacobi launches {n}; {_lanczos(counts0)}", flush=True)
         devs[name] = _check_example(tag, text, spec)
         _check_held(tag, grams, n, held, gram_tol)
         seconds[name] = round(secs, 3)
@@ -3632,6 +3713,16 @@ def main():
                                           seconds=round(time.perf_counter() - t0, 1))),
               flush=True)
         print(f"[mesh] phases 1, 2, 4 and 16 passed in "
+              f"{time.perf_counter() - _T0:.1f} s", flush=True)
+        return
+    if "--evolve" in sys.argv[1:]:
+        # phases 1, 2 and 6 alone; no kernel record and no result line
+        _, card = phase_environment()
+        phase_build()
+        evolve_launches, steps = phase_evolution(card, profile, TOL_F32)
+        print("[evolve] " + json.dumps(dict(launches=evolve_launches, steps=steps)),
+              flush=True)
+        print(f"[evolve] phases 1, 2 and 6 passed in "
               f"{time.perf_counter() - _T0:.1f} s", flush=True)
         return
     if "--examples" in sys.argv[1:]:

@@ -12,8 +12,11 @@ workspace budget and its host spill), ``davidson_multiroot``,
 ``jax.scipy.sparse.linalg.cg`` that the JAX package calls.  The JAX package
 fuses each loop into one ``lax.while_loop``; PyTorch runs eagerly, so each
 loop is a Python loop whose convergence test reads one scalar per
-iteration, a few microseconds on a local card.  The Davidson trial basis is
-a fixed (S, N) workspace with thick restart; the S x S subspace eigh is
+iteration, a few microseconds on a local card.  The Lanczos exponential
+reads nothing back (fixed step count, masked breakdown, the tridiagonal on
+the Jacobi kernel), so on a CUDA device ``expm_krylov_fused`` replays it as
+one CUDA graph per operator shape.  The Davidson trial basis is a fixed
+(S, N) workspace with thick restart; the S x S subspace eigh is
 ``torch.linalg.eigh`` in double precision (:func:`eigh_wide`).
 """
 
@@ -23,6 +26,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from renormalizer_tpu_torch.ops import jacobi
 from renormalizer_tpu_torch.ops.contract import (
     _ENV_FORMULAS,
     _HOP_FORMULAS,
@@ -384,14 +388,94 @@ def davidson_host(hop, cguess, precond, nroots=1, tol=1e-9, max_cycle=100,
 
 # --- Lanczos expm ----------------------------------------------------------
 
+BREAKDOWN_EPS = 64.0
+
+
+def _dt_is_complex(dt) -> bool:
+    return dt.is_complex() if isinstance(dt, torch.Tensor) else isinstance(dt, complex)
+
+
+def _dt_tensor(dt, real: torch.dtype, device) -> torch.Tensor:
+    """The python scalar ``dt`` as a 0-d tensor that promotes with a
+    ``real`` tensor as the scalar does: ``real`` itself, or the complex type
+    of its precision."""
+    if isinstance(dt, complex):
+        dtype = torch.complex64 if real == torch.float32 else torch.complex128
+    else:
+        dtype = real
+    return torch.full((), dt, dtype=dtype, device=device)
+
+
+def _tridiag_eigh(t_mat: torch.Tensor):
+    """Eigenpairs of the Lanczos tridiagonal ``t_mat`` in its own (real)
+    precision, with the solve's relative residual and sweep count (None on
+    the CPU).  On a CUDA tensor it is one launch of the port's Jacobi kernel
+    on the current stream, which reads nothing back (cuSOLVER's ``eigh``
+    waits on its host workspace twice), counted in
+    ``lanczos.jacobi_launches`` unless a CUDA graph is capturing it (each
+    replay counts its own).  On the CPU ``torch.linalg.eigh``."""
+    if not t_mat.is_cuda:
+        return tuple(torch.linalg.eigh(t_mat)) + (None, None)
+    out = jacobi.kernel_eigh(t_mat, return_resid=True, return_sweeps=True)
+    if not torch.cuda.is_current_stream_capturing():
+        COUNTERS["lanczos.jacobi_launches"] += 1
+    return out
+
+
+def _lanczos_core(hop: Callable, dt, v0: torch.Tensor, m_max: int,
+                  breakdown_eps: float):
+    """The body of :func:`_lanczos_expm`, with no span or host read: what a
+    CUDA graph captures.  Returns the result and the tridiagonal with what
+    :func:`_tridiag_eigh` gave for it, ``(t_mat, w, u, resid, nsweeps)``."""
+    real = v0.real.dtype
+    tol = breakdown_eps * torch.finfo(real).eps
+    out_dtype = (torch.promote_types(v0.dtype, torch.complex64)
+                 if _dt_is_complex(dt) else v0.dtype)
+    beta0 = torch.linalg.vector_norm(v0)
+    big_v = torch.zeros((m_max + 1, v0.shape[0]), dtype=v0.dtype, device=v0.device)
+    big_v[0] = v0 / beta0
+    alpha = torch.zeros(m_max, dtype=real, device=v0.device)
+    beta = torch.zeros(m_max, dtype=real, device=v0.device)
+    vprev = torch.zeros_like(v0)
+    bprev = torch.zeros((), dtype=real, device=v0.device)
+    scale = torch.zeros((), dtype=real, device=v0.device)
+    for j in range(m_max):
+        v = big_v[j]
+        w = hop(v)
+        scale = torch.maximum(scale, torch.linalg.vector_norm(w))
+        a = torch.vdot(v, w).real
+        w = w - a * v - bprev * vprev
+        # full reorthogonalization; rows beyond j are still zero.
+        # conj(V) w = conj(V conj(w)): conjugate the vector, not the basis
+        basis = big_v[: j + 1]
+        w = w - basis.T @ (basis @ w.conj()).conj()
+        b = torch.linalg.vector_norm(w)
+        keep = b > torch.clamp(tol * scale, min=1e-14)
+        big_v[j + 1] = torch.where(keep, w / b, 0)
+        alpha[j] = a
+        beta[j] = bprev = torch.where(keep, b, 0)
+        vprev = v
+    t_mat = (torch.diag(alpha) + torch.diag(beta[: m_max - 1], 1)
+             + torch.diag(beta[: m_max - 1], -1))
+    tridiagonal = (t_mat,) + _tridiag_eigh(t_mat)
+    _, w_eig, u, _, _ = tridiagonal
+    # coef = u diag(exp(dt w)) u^T e_1, with the real u kept out of the
+    # complex product until the end
+    phase = torch.exp(dt * w_eig)
+    coef = (u * u[0, :][None, :]).to(phase.dtype) @ phase
+    return (beta0 * coef.to(out_dtype)) @ big_v[:m_max].to(out_dtype), tridiagonal
+
+
 def _lanczos_expm(hop: Callable, dt, v0: torch.Tensor, m_max: int,
-                  breakdown_eps: float = 64.0):
+                  breakdown_eps: float = BREAKDOWN_EPS):
     """``expm(dt * A) @ v0`` from ``m_max`` Lanczos steps with full
     reorthogonalization.  The step count is fixed and a breakdown is masked
-    on the device, so the loop never reads a device value on the host; rows
-    of ``V`` past a breakdown are zero and contribute zero couplings to
-    ``T``.  ``alpha``, ``beta`` and ``T`` are real; ``dt`` is a python scalar
-    (complex for real-time propagation).
+    on the device, and on a CUDA device the tridiagonal is solved by the
+    port's Jacobi kernel, so the call never reads a device value on the
+    host; rows of ``V`` past a breakdown are zero and contribute zero
+    couplings to ``T``.  ``alpha``, ``beta`` and ``T`` are real; ``dt`` is a
+    python scalar (complex for real-time propagation) or a 0-d tensor of the
+    type :func:`_dt_tensor` gives it, which computes the same numbers.
 
     Breakdown is ``beta <= max(1e-14, breakdown_eps eps max_j |A v_j|)``
     (``breakdown_eps = 0`` is the absolute rule, kept for the tests): once the
@@ -413,44 +497,7 @@ def _lanczos_expm(hop: Callable, dt, v0: torch.Tensor, m_max: int,
     with span("lanczos"):
         COUNTERS["lanczos.calls"] += 1
         COUNTERS["lanczos.steps"] += m_max
-        real = v0.real.dtype
-        tol = breakdown_eps * torch.finfo(real).eps
-        out_dtype = (torch.promote_types(v0.dtype, torch.complex64)
-                     if isinstance(dt, complex) else v0.dtype)
-        beta0 = torch.linalg.vector_norm(v0)
-        big_v = torch.zeros((m_max + 1, v0.shape[0]), dtype=v0.dtype, device=v0.device)
-        big_v[0] = v0 / beta0
-        alpha = torch.zeros(m_max, dtype=real, device=v0.device)
-        beta = torch.zeros(m_max, dtype=real, device=v0.device)
-        vprev = torch.zeros_like(v0)
-        bprev = torch.zeros((), dtype=real, device=v0.device)
-        scale = torch.zeros((), dtype=real, device=v0.device)
-        for j in range(m_max):
-            v = big_v[j]
-            w = hop(v)
-            scale = torch.maximum(scale, torch.linalg.vector_norm(w))
-            a = torch.vdot(v, w).real
-            w = w - a * v - bprev * vprev
-            # full reorthogonalization; rows beyond j are still zero.
-            # conj(V) w = conj(V conj(w)): conjugate the vector, not the basis
-            basis = big_v[: j + 1]
-            w = w - basis.T @ (basis @ w.conj()).conj()
-            b = torch.linalg.vector_norm(w)
-            keep = b > torch.clamp(tol * scale, min=1e-14)
-            big_v[j + 1] = torch.where(keep, w / b, 0)
-            alpha[j] = a
-            beta[j] = bprev = torch.where(keep, b, 0)
-            vprev = v
-        t_mat = (torch.diag(alpha) + torch.diag(beta[: m_max - 1], 1)
-                 + torch.diag(beta[: m_max - 1], -1))
-        w_eig, u = torch.linalg.eigh(t_mat)
-        if t_mat.is_cuda:
-            count_wait()  # cuSOLVER's own wait, which the sync debug mode misses
-        # coef = u diag(exp(dt w)) u^T e_1, with the real u kept out of the
-        # complex product until the end
-        phase = torch.exp(dt * w_eig)
-        coef = (u * u[0, :][None, :]).to(phase.dtype) @ phase
-        return (beta0 * coef.to(out_dtype)) @ big_v[:m_max].to(out_dtype), m_max
+        return _lanczos_core(hop, dt, v0, m_max, breakdown_eps)[0], m_max
 
 
 def _python_dt(dt):
@@ -463,33 +510,195 @@ def _python_dt(dt):
 def expm_krylov(hop: Callable, dt, v0: torch.Tensor, max_m: int = 30):
     """Approximate ``expm(dt * A) @ v0`` for hermitian ``A`` via Lanczos
     with full reorthogonalization.  ``dt`` may be complex (real-time
-    evolution uses ``-1j*tau``).  Returns ``(w, m_used)``."""
+    evolution uses ``-1j*tau``).  Returns ``(w, m_used)``.  It runs eagerly
+    (``lanczos.graph.eager.cpu``/``.opaque_hop``): a capture would freeze
+    the tensors inside the opaque ``hop`` at their addresses."""
     dt = _python_dt(dt)
     if isinstance(dt, complex) and not v0.is_complex():
         v0 = v0.to(torch.promote_types(v0.dtype, torch.complex64))
+    COUNTERS["lanczos.graph.eager." + ("opaque_hop" if v0.is_cuda else "cpu")] += 1
     return _lanczos_expm(hop, dt, v0, int(min(max_m, v0.shape[0])))
+
+
+# --- the Lanczos expm as CUDA graphs ------------------------------------------
+# On a CUDA device :func:`expm_krylov_fused` runs the whole ``_lanczos_core``
+# as one CUDA graph per key: the formula, the operands' and the state's
+# shapes, dtypes and strides, the Krylov dimension, the breakdown rule,
+# whether dt is complex, the TF32 setting and the device.  A key is captured
+# at its second sighting (the first runs eagerly, the warm-up a capture
+# wants), into static operand, state and dt buffers; a call copies its
+# operands, state and dt into them, replays the graph and clones the result
+# out of its static output.  The graphs of a device share one memory pool:
+# replays run one after another on one stream and each output is cloned out,
+# so only one graph's workspace is alive at a time.  The static buffers of
+# the cache are held to a share of the device memory that is free when a key
+# is met (or held by the cache already); past it a key runs eagerly.  Each
+# ``Mps.evolve`` ends an evolution step (:func:`end_graph_step`): a key met
+# in neither of the last ``_KEEP_STEPS`` steps is forgotten with its graph,
+# so shapes that do not come back (bonds that grow or are truncated) hold no
+# memory.  Counters: ``lanczos.graph.captures``, ``lanczos.graph.replays``,
+# ``lanczos.graph.dropped``, ``lanczos.graph.eager.<reason>`` (``cpu``,
+# ``opaque_hop``, ``first_sighting``, ``budget``).
+
+_GRAPH_SHARE = 0.5
+# two steps, so that jobs that evolve two states in turn (bra and ket) keep
+# the keys of both
+_KEEP_STEPS = 2
+
+
+class _LanczosGraph:
+    """``_lanczos_core`` of ``einsum(formula, *operands, c)`` captured once
+    into the pool of ``graphs`` and replayed from static buffers.  After a
+    replay ``tridiagonal`` holds that call's ``(t_mat, w, u, resid,
+    nsweeps)``."""
+
+    def __init__(self, graphs, formula, operands, c0, dt, dtype, m_max):
+        self.m_max = m_max
+        self.ops = [torch.empty_like(o, dtype=dtype) for o in operands]
+        self.c0 = torch.empty_like(c0, dtype=dtype)
+        self.dt = _dt_tensor(dt, self.c0.real.dtype, c0.device)
+        cshape = tuple(c0.shape)
+
+        def hop(v):
+            return einsum(formula, *self.ops, v.reshape(cshape)).reshape(-1)
+
+        self.graph = torch.cuda.CUDAGraph()
+        graphs.stream.wait_stream(torch.cuda.current_stream(c0.device))
+        # the capture's device is the current one
+        with torch.cuda.device(c0.device), torch.cuda.stream(graphs.stream):
+            self.graph.capture_begin(pool=graphs.pool)
+            try:
+                out, self.tridiagonal = _lanczos_core(
+                    hop, self.dt, self.c0.reshape(-1), m_max, BREAKDOWN_EPS)
+                self.out = out.reshape(cshape)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(c0.device).wait_stream(graphs.stream)
+        self.nbytes = sum(t.numel() * t.itemsize for t in self.ops + [self.c0, self.out])
+
+    def __call__(self, operands, dt, c0) -> torch.Tensor:
+        for static, o in zip(self.ops, operands):
+            static.copy_(o)
+        self.c0.copy_(c0)
+        self.dt.fill_(dt)
+        self.graph.replay()
+        COUNTERS["lanczos.calls"] += 1
+        COUNTERS["lanczos.steps"] += self.m_max
+        COUNTERS["lanczos.graph.replays"] += 1
+        COUNTERS["lanczos.jacobi_launches"] += 1  # the graph's one kernel launch
+        return self.out.clone()
+
+
+class _DeviceGraphs:
+    """The Lanczos graphs of one device: the captured keys, the step in
+    which each key was last met, the static bytes held, the shared memory
+    pool and the capture stream."""
+
+    def __init__(self, device):
+        self.device = device
+        self.graphs: Dict[tuple, _LanczosGraph] = {}
+        self.met: Dict[tuple, int] = {}
+        self.step = 0
+        self.nbytes = 0
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+
+    def admits(self, need: int) -> bool:
+        """Whether ``need`` more static bytes keep the cache within its share
+        of the memory that is free on the device or held by the cache."""
+        free, _ = torch.cuda.mem_get_info(self.device)
+        cached = (torch.cuda.memory_reserved(self.device)
+                  - torch.cuda.memory_allocated(self.device))
+        return self.nbytes + need <= _GRAPH_SHARE * (free + cached + self.nbytes)
+
+    def get(self, formula, operands, dt, c0, dtype, m_max):
+        """The key's graph, captured now if this is its second sighting and
+        the budget admits it; None (counted with its reason) where the call
+        runs eagerly."""
+        key = (formula, tuple((tuple(o.shape), o.dtype, o.stride()) for o in operands),
+               (tuple(c0.shape), c0.dtype, c0.stride()), dtype, m_max, BREAKDOWN_EPS,
+               isinstance(dt, complex), torch.backends.cuda.matmul.allow_tf32)
+        first = key not in self.met
+        self.met[key] = self.step
+        graph = self.graphs.get(key)
+        if graph is not None:
+            return graph
+        if first:
+            reason = "first_sighting"
+        else:
+            # the Krylov basis is the capture's workspace, alive while it runs
+            elems = sum(o.numel() for o in operands) + (m_max + 3) * c0.numel()
+            if self.admits(elems * dtype.itemsize):
+                graph = self.graphs[key] = _LanczosGraph(self, formula, operands, c0,
+                                                         dt, dtype, m_max)
+                self.nbytes += graph.nbytes
+                COUNTERS["lanczos.graph.captures"] += 1
+                return graph
+            reason = "budget"
+        COUNTERS["lanczos.graph.eager." + reason] += 1
+        return None
+
+    def end_step(self):
+        """Forget the keys met in none of the last ``_KEEP_STEPS`` steps,
+        with their graphs."""
+        self.step += 1
+        dropped = 0
+        for key in [k for k, step in self.met.items() if step < self.step - _KEEP_STEPS]:
+            del self.met[key]
+            graph = self.graphs.pop(key, None)
+            if graph is not None:
+                self.nbytes -= graph.nbytes
+                dropped += 1
+        COUNTERS["lanczos.graph.dropped"] += dropped
+        if dropped and not self.graphs:
+            # the allocator releases a pool once no graph holds it, and
+            # refuses a capture into it after that: the next one takes a new pool
+            self.pool = torch.cuda.graph_pool_handle()
+
+
+_DEVICE_GRAPHS: Dict[torch.device, _DeviceGraphs] = {}
+
+
+def end_graph_step():
+    """End an evolution step for the Lanczos graphs of every device
+    (``Mps.evolve`` calls it once a step)."""
+    for graphs in _DEVICE_GRAPHS.values():
+        graphs.end_step()
 
 
 def expm_krylov_fused(formula: str, operands, dt, c0: torch.Tensor,
                       max_m: int = 30) -> torch.Tensor:
     """Lanczos expm of an einsum-defined effective Hamiltonian:
     ``expm(dt * H_eff) c0`` with ``H_eff c = einsum(formula, *operands, c)``.
-    The state and the operands are brought to one dtype here, once, outside
-    the Lanczos loop (complex when ``dt`` or any operand is)."""
+    The state and the operands are brought to one dtype, once, outside the
+    Lanczos loop (complex when ``dt`` or any operand is).  On a CUDA device
+    the call replays the key's CUDA graph (see above), and the conversion is
+    the copy into its static buffers."""
     dt = _python_dt(dt)
     dtype = c0.dtype
     for o in operands:
         dtype = torch.promote_types(dtype, o.dtype)
     if isinstance(dt, complex):
         dtype = torch.promote_types(dtype, torch.complex64)
+    m_max = int(min(max_m, c0.numel()))
+    cshape = tuple(c0.shape)
+    if c0.is_cuda:
+        with span("lanczos"):
+            graphs = _DEVICE_GRAPHS.get(c0.device)
+            if graphs is None:
+                graphs = _DEVICE_GRAPHS[c0.device] = _DeviceGraphs(c0.device)
+            graph = graphs.get(formula, operands, dt, c0, dtype, m_max)
+            if graph is not None:
+                return graph(operands, dt, c0)
+    else:
+        COUNTERS["lanczos.graph.eager.cpu"] += 1
     c0 = c0.to(dtype)
     operands = [o.to(dtype) for o in operands]
-    cshape = tuple(c0.shape)
 
     def hop(v):
         return einsum(formula, *operands, v.reshape(cshape)).reshape(-1)
 
-    w, _ = _lanczos_expm(hop, dt, c0.reshape(-1), int(min(max_m, c0.numel())))
+    w, _ = _lanczos_expm(hop, dt, c0.reshape(-1), m_max)
     return w.reshape(cshape)
 
 

@@ -611,7 +611,9 @@ class Mps(MatrixProduct):
     # --- evolution ------------------------------------------------------------
     def evolve(self, mpo, evolve_dt, normalize=True) -> "Mps":
         with maybe_profile("evolve"), span("tdvp.step"):
-            return self._evolve(mpo, evolve_dt, normalize)
+            out = self._evolve(mpo, evolve_dt, normalize)
+            solvers.end_graph_step()
+        return out
 
     def _evolve(self, mpo, evolve_dt, normalize):
         method = self.evolve_config.method

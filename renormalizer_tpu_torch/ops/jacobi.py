@@ -263,7 +263,6 @@ def _solve_cuda(a: torch.Tensor, sweeps: int):
                  int(sweeps) + MAX_EXTRA_SWEEPS, stream)
     if err != 0:
         raise RuntimeError(f"jacobi_eigh kernel launch failed: CUDA error {err}")
-    COUNTERS["jacobi.launches"] += 1
     return w, v, resid, nsweeps
 
 
@@ -351,10 +350,20 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = None, return_resid: bool = False,
         _check(a)
         if a.device.type == "cpu":
             return jacobi_eigh_reference(a, sweeps, return_resid, return_sweeps)
-        batched = a.ndim == 3
-        a3 = a if batched else a[None]
-        n0 = a3.shape[-1]
-        check_kernel_size(n0)
-        sweeps = default_sweeps(a.dtype) if sweeps is None else sweeps
-        out = _solve_cuda(_pad(a3, padded_size(n0)), sweeps)
-        return _finish(*out, n0, batched, return_resid, return_sweeps)
+        out = kernel_eigh(a, sweeps, return_resid, return_sweeps)
+        COUNTERS["jacobi.launches"] += 1
+        return out
+
+
+def kernel_eigh(a: torch.Tensor, sweeps: int = None, return_resid: bool = False,
+                return_sweeps: bool = False):
+    """:func:`jacobi_eigh` of a CUDA tensor with no span and no count: pad,
+    launch the kernel on the current stream, restrict and sort.  The callers
+    count the launch (``jacobi.launches``, ``lanczos.jacobi_launches``)."""
+    batched = a.ndim == 3
+    a3 = a if batched else a[None]
+    n0 = a3.shape[-1]
+    check_kernel_size(n0)
+    sweeps = default_sweeps(a.dtype) if sweeps is None else sweeps
+    out = _solve_cuda(_pad(a3, padded_size(n0)), sweeps)
+    return _finish(*out, n0, batched, return_resid, return_sweeps)

@@ -279,7 +279,8 @@ def test_host_waits_are_counted_where_they_happen(cuda, monkeypatch):
     and factorizations is counted under a span: the runtime's stream and
     event syncs in a profile of each call equal the ``waits.*`` counted
     (torch's through its sync debug mode, cuSOLVER's own at the call site,
-    the pending spectrum's event at its read)."""
+    the pending spectrum's event at its read).  A CUDA ``_lanczos_expm``
+    makes none and counts none."""
     from renormalizer_tpu_torch.lib import solvers
     from renormalizer_tpu_torch.mps import trunc_device
     from renormalizer_tpu_torch.utils import profiling
@@ -316,5 +317,185 @@ def test_host_waits_are_counted_where_they_happen(cuda, monkeypatch):
         seen = collections.Counter(e.name for e in prof.events() if "Synchronize" in e.name)
         waits = sum(n for k, n in profiling.delta(before).items() if k.startswith("waits."))
         host_waits = seen["cudaStreamSynchronize"] + seen["cudaEventSynchronize"]
-        assert host_waits > 0 and waits == host_waits, (name, dict(seen), waits)
+        if name == "lanczos":
+            # the tridiagonal goes to the Jacobi kernel, which reads nothing back
+            assert host_waits == 0 and waits == 0, (name, dict(seen), waits)
+        else:
+            assert host_waits > 0 and waits == host_waits, (name, dict(seen), waits)
     profiling.clear()
+
+
+def _holstein3():
+    """The 3-molecule chain of the benchmark's Holstein molecule (two modes
+    of 4 levels, J = -0.1 eV)."""
+    from renormalizer_tpu_torch import HolsteinModel, Mol, Phonon, Quantity
+
+    phs = [Phonon.simple_phonon(Quantity(w, "cm-1"), Quantity(d), 4)
+           for w, d in ((106.51, 30.137), (1555.55, 8.7729))]
+    return HolsteinModel([Mol(Quantity(2.67, "eV"), phs)] * 3, Quantity(-0.1, "eV"))
+
+
+def _fresh_graph_cache(monkeypatch):
+    from renormalizer_tpu_torch.lib import solvers
+
+    monkeypatch.setattr(solvers, "_DEVICE_GRAPHS", {})
+
+
+def _relative(a, b):
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.cuda
+def test_lanczos_graph_replays_match_the_eager_path(cuda, monkeypatch):
+    """The Lanczos exponentials of the 3-molecule Holstein chain's fused
+    TDVP-PS as CUDA graphs.  One key, taken from a real step (a middle
+    site's forward exponential): its first call runs eagerly, the second
+    captures, and replays with other operand values, with +dt, -dt and
+    another step size each meet the eager result within 1e-5 relative (a
+    stale static buffer would not); 1 capture, the rest replays.  Then
+    whole steps with graphs meet whole steps without them, ending steps
+    drops the graphs of keys no longer met (and the cache captures again
+    after the last is gone), and the opaque hop of ``expm_krylov`` runs
+    eagerly."""
+    from renormalizer_tpu_torch import EvolveConfig, EvolveMethod, Mpo, Mps
+    from renormalizer_tpu_torch.backend import backend
+    from renormalizer_tpu_torch.lib import solvers
+    from renormalizer_tpu_torch.ops import jacobi
+    from renormalizer_tpu_torch.ops.contract import einsum
+    from renormalizer_tpu_torch.utils import profiling
+
+    assert backend.device.type == "cuda" and backend.is_32bits
+    _fresh_graph_cache(monkeypatch)
+    model = _holstein3()
+    mpo = Mpo(model)
+    backend._seed = 2024
+    start = Mps.random(model, 1, 16, percent=1.0)
+    start.evolve_config = EvolveConfig(EvolveMethod.tdvp_ps)
+    calls, fused = [], solvers.expm_krylov_fused
+
+    def record(formula, operands, dt, c0, max_m=30):
+        calls.append((formula, [o.clone() for o in operands], dt, c0.clone()))
+        return fused(formula, operands, dt, c0, max_m)
+
+    monkeypatch.setattr(solvers, "expm_krylov_fused", record)
+    start.copy().evolve(mpo, 0.2)
+    monkeypatch.setattr(solvers, "expm_krylov_fused", fused)
+    formula, ops, dt, c0 = max((c for c in calls if len(c[1]) == 3),
+                               key=lambda c: c[3].numel())
+    assert isinstance(dt, complex) and c0.is_complex()
+
+    def eager(operands, step, c):
+        shape = tuple(c.shape)
+        hop = lambda v: einsum(formula, *operands, v.reshape(shape)).reshape(-1)  # noqa: E731
+        w, _ = solvers._lanczos_expm(hop, step, c.reshape(-1), 30)
+        return w.reshape(shape)
+
+    # other values in the same layout: the left environment scaled (still
+    # Hermitian), another state
+    other = [torch.empty_like(o).copy_(1.5 * o) if i == 0 else o for i, o in enumerate(ops)]
+    c1 = torch.empty_like(c0).copy_(c0.flip(-1))
+    _fresh_graph_cache(monkeypatch)
+    before = profiling.snapshot()
+    cases = [(ops, dt, c0), (ops, dt, c0), (other, dt, c1), (ops, -dt, c0),
+             (other, 0.5 * dt, c1), (ops, -dt, c1)]
+    for operands, step, c in cases:
+        got = solvers.expm_krylov_fused(formula, operands, step, c)
+        assert _relative(got, eager(operands, step, c)) < 1e-5, step
+    counts = profiling.delta(before)
+    assert counts["lanczos.graph.eager.first_sighting"] == 1
+    assert counts["lanczos.graph.captures"] == 1
+    assert counts["lanczos.graph.replays"] == len(cases) - 1
+    assert counts["lanczos.jacobi_launches"] == counts["lanczos.calls"] == 2 * len(cases)
+    assert counts["jacobi.launches"] == 0
+    # the last replay's tridiagonal, kept in the graph's static outputs
+    (graph,) = solvers._DEVICE_GRAPHS[c0.device].graphs.values()
+    t_mat, w, _, resid, nsweeps = graph.tridiagonal
+    assert 0 < int(nsweeps) < jacobi.default_sweeps(torch.float32) + jacobi.MAX_EXTRA_SWEEPS
+    assert float(resid) < 1e-5
+    w_ref = torch.linalg.eigvalsh(t_mat.double())
+    assert float((w.double() - w_ref).abs().max()) <= 1e-5 * float(torch.linalg.matrix_norm(t_mat))
+
+    # whole steps: graphs from the second sighting on, against eager calls
+    def steps(n):
+        mps = start.copy()
+        for _ in range(n):
+            mps = mps.evolve(mpo, 0.2)
+        return torch.cat([t.reshape(-1) for t in mps])
+
+    _fresh_graph_cache(monkeypatch)
+    before = profiling.snapshot()
+    with_graphs = steps(3)
+    counts = profiling.delta(before)
+    assert counts["lanczos.graph.captures"] > 0
+    assert counts["lanczos.graph.replays"] > counts["lanczos.graph.captures"]
+    # each step ends one for the cache: keys met in neither of the last two
+    # are dropped with their static buffers
+    graphs = solvers._DEVICE_GRAPHS[c0.device]
+    assert graphs.nbytes > 0 and counts["lanczos.graph.dropped"] == 0
+    for _ in range(3):
+        solvers.end_graph_step()
+    counts = profiling.delta(before)
+    assert counts["lanczos.graph.dropped"] == counts["lanczos.graph.captures"]
+    assert graphs.graphs == {} and graphs.met == {} and graphs.nbytes == 0
+    # and the cache captures again once every graph is gone
+    assert _relative(steps(3), with_graphs) < 1e-5
+    assert profiling.delta(before)["lanczos.graph.captures"] == 2 * counts["lanczos.graph.captures"]
+    monkeypatch.setattr(solvers._DeviceGraphs, "get", lambda self, *args: None)
+    assert _relative(with_graphs, steps(3)) < 1e-5
+
+    before = profiling.snapshot()
+    h = torch.tensor(_symmetric_stack(3, 1, 64)[0], dtype=torch.complex64, device=cuda)
+    v0 = torch.ones(64, dtype=torch.complex64, device=cuda)
+    for _ in range(2):
+        solvers.expm_krylov(lambda v: h @ v, -0.1j, v0)
+    counts = profiling.delta(before)
+    assert counts["lanczos.graph.eager.opaque_hop"] == 2
+    assert counts["lanczos.graph.captures"] == counts["lanczos.graph.replays"] == 0
+
+
+@pytest.mark.cuda
+def test_lanczos_tridiagonal_on_the_kernel_matches_linalg_eigh(cuda, monkeypatch):
+    """The tridiagonals of real Lanczos runs on the card, a TDVP-PS step of
+    the 3-molecule chain and a start inside a 3-dimensional invariant
+    subspace (breakdown: every coupling past the third is zero), solved by
+    the Jacobi kernel and by ``torch.linalg.eigh``: no solve at the sweep
+    cap, eigenvalues within 1e-5 of ||T||, and the same exponential's coefficients u exp(dt w) u^T e_1
+    (unique where eigenvalues are degenerate) within 1e-5."""
+    from renormalizer_tpu_torch import EvolveConfig, EvolveMethod, Mpo, Mps
+    from renormalizer_tpu_torch.lib import solvers
+    from renormalizer_tpu_torch.ops import jacobi
+
+    mats, solve = [], solvers._tridiag_eigh
+
+    def keep(t):
+        mats.append(t.clone())
+        return solve(t)
+
+    monkeypatch.setattr(solvers, "_tridiag_eigh", keep)
+    # eager calls only: a capture would record a tridiagonal that is not computed yet
+    monkeypatch.setattr(solvers._DeviceGraphs, "get", lambda self, *args: None)
+    model = _holstein3()
+    mps = Mps.random(model, 1, 16, percent=1.0)
+    mps.evolve_config = EvolveConfig(EvolveMethod.tdvp_ps)
+    mps.evolve(Mpo(model), 0.2)
+    rng = np.random.default_rng(9)
+    q, _ = np.linalg.qr(rng.standard_normal((40, 40)))
+    blocks = [rng.standard_normal((3, 3)), 0.2 * rng.standard_normal((37, 37))]
+    h = q @ np.block([[(blocks[0] + blocks[0].T) / 2, np.zeros((3, 37))],
+                      [np.zeros((37, 3)), (blocks[1] + blocks[1].T) / 2]]) @ q.T
+    h = torch.tensor(h, dtype=torch.complex64, device=cuda)
+    v0 = torch.tensor(q[:, :3] @ [0.5, -1.0, 0.25], dtype=torch.complex64, device=cuda)
+    solvers.expm_krylov(lambda v: h @ v, -0.4j, v0)
+    broken = mats[-1]
+    assert float(broken[3:].abs().max()) == 0.0 and float(broken[:3, :3].abs().max()) > 0
+    assert len(mats) > 2 and all(t.is_cuda and t.dtype == torch.float32 for t in mats)
+    cap = jacobi.default_sweeps(torch.float32) + jacobi.MAX_EXTRA_SWEEPS
+    for t in mats:
+        w, u, _, nsweeps = solve(t)
+        assert int(nsweeps) < cap
+        w_ref, u_ref = torch.linalg.eigh(t.double())
+        norm = float(torch.linalg.matrix_norm(t))
+        assert float((w.double() - w_ref).abs().max()) <= 1e-5 * norm
+        coef = (u * u[0]).to(torch.complex64) @ torch.exp(-0.1j * w)
+        coef_ref = (u_ref * u_ref[0]).to(torch.complex128) @ torch.exp(-0.1j * w_ref)
+        assert float((coef.to(torch.complex128) - coef_ref).abs().max()) <= 1e-5

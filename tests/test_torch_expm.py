@@ -5,6 +5,8 @@ Environments, MPO cores and states are seeded complex numpy arrays,
 symmetrized so that the effective Hamiltonian is Hermitian; the qn-structured
 case takes them from a canonical state of the 3-molecule Holstein model."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,6 +201,88 @@ def test_breakdown_threshold_keeps_a_live_krylov_space(kind, dtype):
     tol = {("large_norm", torch.complex64): 2e-6, ("offset", torch.complex64): 5e-4,
            ("large_norm", torch.complex128): 1e-13, ("offset", torch.complex128): 1e-11}
     assert err < tol[kind, dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64, torch.float64,
+                                   torch.complex128], ids=["f32", "c64", "f64", "c128"])
+@pytest.mark.parametrize("dt", [-0.3j, 0.3j, -0.2], ids=["fwd", "bwd", "imag"])
+def test_dt_as_a_tensor_gives_the_scalar_result(dt, dtype):
+    """``dt`` as the 0-d tensor that a CUDA graph reads (``_dt_tensor``)
+    gives the python scalar's result bit for bit, in its dtype, at real and
+    complex dt."""
+    lt, wt, rt = hermitian_operands(1, 6, 4, 6)
+    h = _t(hop_dense(_t(lt), _t(rt), [_t(wt)]).numpy().reshape(144, 144))
+    v = _crandn(np.random.default_rng(2), 144)
+    if not dtype.is_complex:
+        h, v = h.real, v.real
+    h, v0 = h.to(dtype), _t(v).to(dtype)
+    a, _ = solvers._lanczos_expm(lambda x: h @ x, dt, v0, 30)
+    b, _ = solvers._lanczos_expm(lambda x: h @ x, solvers._dt_tensor(dt, v0.real.dtype, "cpu"),
+                                 v0, 30)
+    assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["fused", "opaque_hop"])
+def test_cpu_calls_run_eagerly(kind):
+    """On the CPU neither form of the operator is captured, at any sighting:
+    each call counts ``lanczos.graph.eager.cpu``, none captures or replays,
+    and the second call of a key gives the first one's result bit for bit."""
+    from renormalizer_tpu_torch.utils import profiling
+
+    lt, wt, rt = hermitian_operands(1, 3, 2, 3)
+    ops = (_t(lt), _t(wt), _t(rt))
+    c = _t(_crandn(np.random.default_rng(2), 3, 2, 3))
+    h = hop_dense(*ops[::2], [ops[1]]).reshape(18, 18)
+    if kind == "fused":
+        call = lambda: solvers.expm_krylov_fused(F1, ops, -0.3j, c)  # noqa: E731
+    else:
+        call = lambda: solvers.expm_krylov(lambda v: h @ v, -0.3j, c.reshape(-1))[0]  # noqa: E731
+    before = profiling.snapshot()
+    first, second = call(), call()
+    counts = profiling.delta(before)
+    assert torch.equal(first, second)
+    assert counts["lanczos.graph.eager.cpu"] == counts["lanczos.calls"] == 2
+    assert {k for k in counts if k.startswith("lanczos.graph.")} == {"lanczos.graph.eager.cpu"}
+    assert counts["lanczos.jacobi_launches"] == 0
+
+
+def test_graph_keys_expire_after_two_steps_unmet(monkeypatch):
+    """The graph cache's bookkeeping, with no capture (the budget refuses
+    it): a key's second sighting tries a capture while the key was met in
+    one of the last two steps (``end_graph_step``); after two steps unmet
+    it is forgotten, and a graph it held is dropped with its bytes; with
+    the last graph gone the cache takes a new memory pool."""
+    from renormalizer_tpu_torch.utils import profiling
+
+    graphs = object.__new__(solvers._DeviceGraphs)
+    graphs.graphs, graphs.met, graphs.step, graphs.nbytes = {}, {}, 0, 0
+    monkeypatch.setattr(solvers, "_DEVICE_GRAPHS", {"card": graphs})
+    monkeypatch.setattr(solvers._DeviceGraphs, "admits", lambda self, need: False)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "new pool")
+    lt, wt, rt = hermitian_operands(1, 3, 2, 3)
+    ops, c = (_t(lt), _t(wt), _t(rt)), _t(_crandn(np.random.default_rng(2), 3, 2, 3))
+    before = profiling.snapshot()
+
+    def sighting():
+        assert graphs.get(F1, ops, -0.3j, c, torch.complex128, 18) is None
+        counts = profiling.delta(before)
+        return counts["lanczos.graph.eager.first_sighting"], counts["lanczos.graph.eager.budget"]
+
+    assert sighting() == (1, 0)
+    for _ in range(2):
+        solvers.end_graph_step()
+    assert sighting() == (1, 1)
+    (key,) = graphs.met
+    graphs.graphs[key] = types.SimpleNamespace(nbytes=64)
+    graphs.nbytes = 64
+    for _ in range(2):
+        solvers.end_graph_step()
+    assert key in graphs.graphs and profiling.delta(before)["lanczos.graph.dropped"] == 0
+    solvers.end_graph_step()
+    assert graphs.graphs == {} and graphs.met == {} and graphs.nbytes == 0
+    assert profiling.delta(before)["lanczos.graph.dropped"] == 1
+    assert graphs.pool == "new pool"  # no graph holds the old one
+    assert sighting() == (2, 1)
 
 
 def _dense_site_visit(dt, c, lt, wt, rt, nbr, to_right):

@@ -126,7 +126,7 @@ def _port_sources():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     paths = [os.path.join(repo, name) for name in
              ("chip_smoke.py", "energy_witness.py", "vmf_precision_probe.py",
-              "padding_seed_probe.py", "eigh_precision_probe.py")]
+              "padding_seed_probe.py", "eigh_precision_probe.py", "tridiag_probe.py")]
     for root, dirs, files in os.walk(os.path.join(repo, "renormalizer_tpu_torch")):
         if "_build" in dirs:
             dirs.remove("_build")  # build output, not source
@@ -136,8 +136,9 @@ def _port_sources():
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     """Every import statement of the port, the chip smoke script, the
-    energy witness, the MU-VMF precision probe, the padding seed probe and
-    the eigh precision probe, read from the syntax tree."""
+    energy witness, the MU-VMF precision probe, the padding seed probe, the
+    eigh precision probe and the Lanczos tridiagonal probe, read from the
+    syntax tree."""
     paths = _port_sources()
     assert len(paths) > 30
     for path in paths:
